@@ -1,0 +1,500 @@
+#!/usr/bin/env python3
+"""Chip smoke of the PyTorch/CUDA port on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Builds the port's packed-matmul CUDA kernels from ``src/repro_torch/
+kernels/csrc`` (nvcc, sm_90a) and drives the port end to end:
+
+1. card identity (``nvidia-smi`` name and power limit) and the build;
+2. each kernel against its plain PyTorch version at smollm-135m's packed
+   shapes — elementwise within 2*K*2^-24*(|x|@|w|), masked rows
+   bit-identical to the unmasked kernel on truncated planes, demand-routed
+   bit-identical to full masked — and timed with CUDA events;
+3. the main path at full width: ``api.compress`` of smollm-135m (random
+   weights from a seeded ``torch.Generator``), ``save``,
+   ``api.load(verify=True)``, ``artifact.engine(quality="mid",
+   batch_slots=8)`` serving 12 mixed-tier requests with staggered
+   arrivals; every kernel must launch and no plain version may run;
+4. the card against the CPU at the 2-layer d64 test config: identical
+   greedy tokens, logits within 1e-4.
+
+Any failed check raises, so the script exits non-zero and prints no
+result.  The second-to-last line is the per-kernel JSON summary and the
+last line ``{"ok": true, "device": {...}}``.  The compiler's register and
+shared-memory report goes to ``build/kernels/build.log``.
+"""
+from __future__ import annotations
+
+import json
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
+
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
+PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12}  # dense bf16 tensor / f32 non-tensor
+SHAPES = [(576, 576), (576, 192), (576, 1536), (1536, 576), (576, 49152)]  # (K, N)
+GROUP = 16
+M_GEMV, M_GEMM = 8, 64
+KERNELS = {
+    # name: (masked, M, source, the TPU kernel's pallas_call)
+    "qsq_matvec": (False, M_GEMV, "src/repro_torch/kernels/csrc/qsq_matvec.cu",
+                   "src/repro/kernels/qsq_matvec.py:224"),
+    "qsq_matvec_masked": (True, M_GEMV, "src/repro_torch/kernels/csrc/qsq_matvec.cu",
+                          "src/repro/kernels/qsq_matvec.py:163"),
+    "qsq_matmul": (False, M_GEMM, "src/repro_torch/kernels/csrc/qsq_matmul.cu",
+                   "src/repro/kernels/qsq_matmul.py:298"),
+    "qsq_matmul_masked": (True, M_GEMM, "src/repro_torch/kernels/csrc/qsq_matmul.cu",
+                          "src/repro/kernels/qsq_matmul.py:242"),
+}
+
+
+def say(*a):
+    print(*a, flush=True)
+
+
+def card_line() -> str:
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         check=True, timeout=60)
+    return out.stdout.strip().splitlines()[0]
+
+
+# --------------------------------------------------------------------------
+# Phase 2: kernels against their plain versions
+# --------------------------------------------------------------------------
+class Flush:
+    """Writes 64 MB between timed launches so every launch finds the 50 MB
+    L2 cold, as the decode step's 78 MB weight stream does."""
+
+    def __init__(self, torch):
+        self.buf = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+
+    def __call__(self):
+        self.buf.zero_()
+
+
+def time_ms(torch, fn, flush, runs=25, warmup=3) -> float:
+    """Median of ``runs`` cold single-call CUDA-event timings, in ms."""
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(runs):
+        flush()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+def operands(torch, m, k, n, gen, x_dtype, min_drop=0):
+    from repro_torch.kernels.ref import MASK_VARIANTS
+
+    x = torch.randn((m, k), generator=gen, device="cuda").to(x_dtype)
+    planes = torch.randint(-2**31, 2**31 - 1, (3, k // 32, n), generator=gen,
+                           device="cuda", dtype=torch.int32)
+    scales = torch.rand((k // GROUP, n), generator=gen, device="cuda") * 0.09 + 0.01
+    variants = torch.tensor(MASK_VARIANTS[min_drop:], dtype=torch.int32, device="cuda")
+    pick = torch.randint(0, len(variants), (m,), generator=gen, device="cuda")
+    return x, planes, scales, variants[pick].contiguous()
+
+
+def f32_bound(torch, x, plane_mask, planes, scales, demand):
+    """2*K*2^-24*(|x| @ |w|) per output, each row with its own mask's weight."""
+    from repro_torch.kernels import ref
+
+    k = x.shape[1]
+    xs = ref.variant_split(x.float().abs(), plane_mask, demand)
+    out = 0
+    for i, mask in enumerate(ref.MASK_VARIANTS[demand:]):
+        w = ref.qsq_dequant_ref(planes, scales, GROUP, sign_mag=True, plane_major=True,
+                                n_planes=3 - demand, code_mask=mask).to(x.dtype).float()
+        out = out + xs[i].double() @ w.abs().double()
+    return 2 * k * 2.0**-24 * out
+
+
+def check_kernels(torch, gen):
+    """Correctness at every shape, dtype and demand; raises on any miss."""
+    from repro_torch.kernels import qsq, ref
+
+    n_checks = 0
+    for k, n in SHAPES:
+        for x_dtype in (torch.bfloat16, torch.float32):
+            for demand in (0, 1, 2):
+                for name, (masked, m, _, _) in KERNELS.items():
+                    x, planes, scales, mask = operands(torch, m, k, n, gen, x_dtype, demand)
+                    kw = dict(group_size=GROUP, sign_mag=True, plane_major=True,
+                              demand_drop=demand)
+                    fn = getattr(qsq, name)
+                    if not masked:
+                        mask = torch.full((m,), ref.MASK_VARIANTS[demand], dtype=torch.int32,
+                                          device="cuda")
+                    got = fn(x, mask, planes, scales, **kw) if masked else fn(
+                        x, planes, scales, **kw)
+                    torch.cuda.synchronize()
+                    want = ref.qsq_matmul_plane_mask_ref(x, mask, planes, scales, **kw)
+                    err = (got.double() - want.double()).abs()
+                    bound = f32_bound(torch, x, mask, planes, scales, demand)
+                    if not bool((err <= bound).all()) or not bool(torch.isfinite(got).all()):
+                        raise AssertionError(
+                            f"{name} K={k} N={n} {x_dtype} demand={demand}: max err "
+                            f"{float(err.max()):.3e} exceeds the f32 bound")
+                    n_checks += 1
+                    if masked:
+                        # bit-identity: each row equals the unmasked kernel on
+                        # planes truncated to the row's drop ...
+                        plain_fn = getattr(qsq, name.replace("_masked", ""))
+                        for drop, code_mask in enumerate(ref.MASK_VARIANTS):
+                            rows = mask == code_mask
+                            if drop < demand or not bool(rows.any()):
+                                continue
+                            trunc = planes.clone()
+                            trunc[3 - drop:] = 0
+                            base = plain_fn(x, trunc, scales, group_size=GROUP, sign_mag=True,
+                                            plane_major=True)
+                            if not torch.equal(got[rows], base[rows]):
+                                raise AssertionError(f"{name} K={k} N={n} {x_dtype}: masked "
+                                                     f"rows at drop {drop} differ from the "
+                                                     f"unmasked kernel on truncated planes")
+                        # ... and demand routing changes no bit
+                        full = fn(x, mask, planes, scales, group_size=GROUP, sign_mag=True,
+                                  plane_major=True, demand_drop=0)
+                        if demand and not torch.equal(got, full):
+                            raise AssertionError(f"{name} K={k} N={n} {x_dtype}: demand "
+                                                 f"{demand} routing changed the output")
+                        n_checks += 2
+    torch.cuda.synchronize()
+    return n_checks
+
+
+def time_kernels(torch, gen, flush):
+    """Per kernel, summed over the five smollm shapes (bf16 x, all planes):
+    kernel, plain-version and library times and the bound."""
+    from repro_torch.kernels import qsq, ref
+
+    rows = {}
+    for name, (masked, m, source, replaces) in KERNELS.items():
+        tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bytes_s=0.0, ops_s=0.0, bound=0.0)
+        for k, n in SHAPES:
+            x, planes, scales, mask = operands(torch, m, k, n, gen, torch.bfloat16)
+            kw = dict(group_size=GROUP, sign_mag=True, plane_major=True)
+            fn = getattr(qsq, name)
+            if masked:
+                def kern():
+                    return fn(x, mask, planes, scales, **kw)
+
+                def plain():
+                    return ref.qsq_matmul_plane_mask_ref(x, mask, planes, scales, **kw)
+            else:
+                def kern():
+                    return fn(x, planes, scales, **kw)
+
+                def plain():
+                    return ref.qsq_matmul_ref(x, planes, scales, GROUP, sign_mag=True,
+                                              plane_major=True)
+            w = ref.qsq_dequant_ref(planes, scales, GROUP, sign_mag=True,
+                                    plane_major=True).to(torch.bfloat16)
+
+            def library():
+                return torch.matmul(x, w)
+
+            ms = time_ms(torch, kern, flush)
+            plain_ms = time_ms(torch, plain, flush)
+            lib_ms = time_ms(torch, library, flush)
+            nbytes = (m * k * 2 + 3 * (k // 32) * n * 4 + (k // GROUP) * n * 4 + m * n * 4
+                      + (m * 4 if masked else 0))
+            ops = 2 * m * k * n
+            b_s, o_s = nbytes / HBM_BYTES_PER_S, ops / PEAK_OPS["bfloat16"]
+            say(f"  {name:18s} K={k:5d} N={n:5d} M={m:2d}: kernel {ms * 1e3:8.2f} us  "
+                f"plain {plain_ms * 1e3:8.2f} us  torch.matmul {lib_ms * 1e3:8.2f} us  "
+                f"bound {max(b_s, o_s) * 1e6:6.2f} us ({'bytes' if b_s >= o_s else 'ops'})")
+            tot["ms"] += ms
+            tot["plain_ms"] += plain_ms
+            tot["library_ms"] += lib_ms
+            tot["bytes_s"] += b_s
+            tot["ops_s"] += o_s
+            tot["bound"] += max(b_s, o_s)
+        rows[name] = dict(
+            name=name, route="cuda", source=source, replaces=replaces,
+            ms=tot["ms"], plain_ms=tot["plain_ms"], bound_ms=tot["bound"] * 1e3,
+            bound_by="bytes" if tot["bytes_s"] >= tot["ops_s"] else "operations",
+            library_ms=tot["library_ms"])
+    return rows
+
+
+# --------------------------------------------------------------------------
+# Phase 3: the full-width main path
+# --------------------------------------------------------------------------
+def serve_full_width(torch, workdir: Path, cfg, device="cuda"):
+    from repro_torch import api
+    from repro_torch.kernels import dispatch, qsq, ref
+    from repro_torch.models.api import Model
+    from repro_torch.models.base import init_params
+
+    model = Model(cfg)
+    gen = torch.Generator(device=device).manual_seed(0)
+    params = init_params(model.param_descs(), gen, device=device)
+    # lo truncates three quarters of the packed leaves, so the most sensitive
+    # ones serve untiered through the unmasked kernels at every tier
+    tiers = api.QualitySpec((api.QualityTier("hi", 0, 0.0), api.QualityTier("mid", 1, 0.5),
+                             api.QualityTier("lo", 2, 0.75)))
+
+    qsq.reset_launches()
+    ref.calls.clear()
+    dispatch.reset_counters()
+    t0 = time.perf_counter()
+    art = api.compress(model, params, tiers=tiers, device=device)
+    path = art.save(workdir / "smollm_135m.edge.npz")
+    t_save = time.perf_counter() - t0
+    art = api.load(path, verify=True)
+    if art.plane_damage:
+        raise AssertionError(f"fresh artifact failed its checksums: {art.plane_damage}")
+    eng = art.engine(quality="mid", batch_slots=8, device=device)
+    t_load = time.perf_counter() - t0 - t_save
+
+    admit_ms, decode_ms = [], []
+    orig_admit, orig_step = eng._admit, eng._cont_step
+
+    def timed_admit(*a):
+        s = time.perf_counter()
+        cache, first = orig_admit(*a)
+        torch.cuda.synchronize()
+        admit_ms.append((time.perf_counter() - s) * 1e3)
+        return cache, first
+
+    def timed_step(*a):
+        s = time.perf_counter()
+        nxt, cache = orig_step(*a)
+        torch.cuda.synchronize()
+        decode_ms.append((time.perf_counter() - s) * 1e3)
+        return nxt, cache
+
+    eng._admit, eng._cont_step = timed_admit, timed_step
+    rng = torch.Generator().manual_seed(1)
+    lengths = [5 + (59 * i) // 11 for i in range(12)]  # 5 .. 64
+    prompts = [torch.randint(0, cfg.vocab, (n,), generator=rng).tolist() for n in lengths]
+    names = ["hi", "mid", "lo"]
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    rids = [eng.submit(p, max_new=16, quality=names[i % 3]) for i, p in enumerate(prompts[:8])]
+    for p_i in range(8, 12):  # later arrivals join the running decode
+        eng.step()
+        eng.step()
+        rids.append(eng.submit(prompts[p_i], max_new=16, quality=names[p_i % 3]))
+    eng.run_until_drained()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+
+    launches = dict(qsq.launches)
+    stats = eng.stream_stats()
+    for r in rids:
+        st = eng.poll(r)
+        if st.finish_reason is None or st.finish_reason.value != "done" or len(st.tokens) != 16:
+            raise AssertionError(f"request {r} ended {st.finish_reason} with "
+                                 f"{len(st.tokens)} tokens")
+        if not all(0 <= t < cfg.vocab for t in st.tokens):
+            raise AssertionError(f"request {r} emitted out-of-vocab tokens")
+    missing = [k for k in KERNELS if launches.get(k, 0) == 0]
+    if missing:
+        raise AssertionError(f"kernels never launched on the main path: {missing}")
+    if sum(ref.calls.values()):
+        raise AssertionError(f"plain versions ran on the main path: {dict(ref.calls)}")
+    if 4 * dispatch.traffic["plane_words_read"] != stats["bytes_read"]:
+        raise AssertionError("per-call dispatch traffic disagrees with the byte meter")
+    tokens = stats["tokens"]
+    say(f"  artifact: {path.stat().st_size / 2**20:.1f} MiB, compress+save "
+        f"{t_save:.1f} s, load(verify)+engine {t_load:.1f} s, {eng.n_packed_leaves} packed "
+        f"leaves")
+    say(f"  served {len(rids)} requests, {tokens} tokens in {wall:.3f} s: "
+        f"{tokens / wall:.1f} tokens/s")
+    say(f"  decode step: median {statistics.median(decode_ms):.2f} ms over {len(decode_ms)} "
+        f"steps; admission (prefill M=64 + insert): median {statistics.median(admit_ms):.2f} "
+        f"ms over {len(admit_ms)}")
+    say(f"  kernels launched: {launches}; plain versions called: {sum(ref.calls.values())}")
+    say(f"  dispatch routes: {dict(dispatch.counters)}")
+    say(f"  stream_stats: bytes/token {stats['bytes_per_token']:.1f}, read_frac "
+        f"{stats['read_frac']:.4f} (= per-call dispatch traffic "
+        f"{4 * dispatch.traffic['plane_words_read']} B)")
+    eng._admit, eng._cont_step = orig_admit, orig_step
+    profile_decode(torch, eng, prompts[:8], names)
+    return launches
+
+
+def profile_decode(torch, eng, prompts, names, steps=4):
+    """Device time by kernel over ``steps`` full-batch decode steps (after
+    the launch counts were read), and the device's busy share of the wall."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for i, p in enumerate(prompts):
+        eng.submit(p, max_new=steps + 4, quality=names[i % 3])
+    eng.step()  # admits every prompt, then one decode
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            eng.step()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    eng.run_until_drained()
+    kern = [(e.key, e.self_device_time_total, e.count) for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    busy = sum(t for _, t, _ in kern)
+    say(f"  profile of {steps} decode steps at 8 live slots: wall {wall_us / steps / 1e3:.2f} "
+        f"ms/step, device busy {busy / steps / 1e3:.2f} ms/step "
+        f"({100 * busy / wall_us:.1f}% of wall)")
+    for name, t, n in sorted(kern, key=lambda r: -r[1])[:8]:
+        say(f"    {t / steps / 1e3:7.3f} ms/step  {n // steps:5d} launches/step  {name[:90]}")
+
+
+# --------------------------------------------------------------------------
+# Phase 4: the card against the CPU at the test config
+# --------------------------------------------------------------------------
+def card_vs_cpu(torch, workdir: Path, card="cuda"):
+    import numpy as np
+
+    from repro_torch import api
+    from repro_torch.configs.base import ArchConfig
+    from repro_torch.convert import params_from_numpy
+    from repro_torch.models.api import Model
+    from repro_torch.models.base import init_params, is_desc
+    from repro_torch.tree import tree_map
+
+    cfg = ArchConfig(name="smollm-bench", family="dense", n_layers=2, d_model=64, n_heads=4,
+                     n_kv=2, d_ff=128, vocab=256, dtype=torch.float32, remat=False)
+    model = Model(cfg)
+    rng = np.random.default_rng(0)
+
+    def draw(d):
+        if d.init == "ones":
+            return np.ones(d.shape, np.float32)
+        std = {"fan_in": d.scale / np.sqrt(d.shape[-2]), "normal": d.scale * 0.02}[d.init]
+        return (rng.standard_normal(d.shape) * std).astype(np.float32)
+
+    params = params_from_numpy(tree_map(draw, model.param_descs(), is_leaf=is_desc), "cpu")
+    path = api.compress(model, params, device="cpu").save(workdir / "d64.edge.npz")
+    art = api.load(path)
+    prompts = [[5, 9, 2], [17], [3, 3, 3, 3, 8, 1], [250, 1], [7] * 8, [1, 2, 3, 4]]
+    quals = ["hi", "mid", "lo", "mid", "lo", "hi"]
+    toks = {}
+    logits = {}
+    for dev in ("cpu", card):
+        eng = art.engine(quality="mid", batch_slots=4, max_prompt=8, max_len=32, device=dev)
+        toks[dev] = eng.generate(prompts[:4], max_new=8, qualities=quals[:4])
+        rids = [eng.submit(p, max_new=6, quality=q) for p, q in zip(prompts, quals)]
+        eng.run_until_drained()
+        toks[dev] += [eng.poll(r).tokens for r in rids]
+        tp, _ = art.serve_params("hi", per_request=True, device=dev)
+        lens = torch.tensor([3, 8, 5], dtype=torch.int32)
+        t = torch.tensor(np.random.default_rng(2).integers(0, 256, (3, 8)), dtype=torch.int32)
+        tiers = torch.tensor([0, 2, 1], dtype=torch.int32)
+        cache = init_params(model.cache_descs(3, 16), device=dev)
+        cache, last = model.prefill(tp, cache, t.to(dev), lens.to(dev), tiers.to(dev), 0)
+        out = [last]
+        cur = torch.argmax(last, -1).to(torch.int32)[:, None]
+        for _ in range(3):
+            lg, cache = model.decode(tp, cache, {"tokens": cur.to(dev), "tiers": tiers.to(dev),
+                                                 "demand": 0})
+            out.append(lg[:, -1])
+            cur = torch.argmax(lg[:, -1], -1).to(torch.int32)[:, None].cpu()
+        logits[dev] = torch.stack([o.cpu() for o in out])
+    if toks["cpu"] != toks[card]:
+        raise AssertionError(f"greedy tokens differ between card and CPU:\n{toks}")
+    diff = (logits[card] - logits["cpu"]).abs()
+    tol = 1e-4 + 1e-4 * logits["cpu"].abs()
+    if not bool((diff <= tol).all()):
+        raise AssertionError(f"card logits off the CPU's by {float(diff.max()):.3e}")
+    say(f"  {sum(len(t) for t in toks[card])} greedy tokens identical on card and CPU; "
+        f"logits max |diff| {float(diff.max()):.3e} (tolerance 1e-4 abs + 1e-4 rel)")
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script runs only on a GPU",
+              file=sys.stderr)
+        return 2
+    from repro_torch.kernels import build
+
+    torch.backends.cuda.matmul.allow_tf32 = False  # plain f32 products stay f32
+    torch.backends.cudnn.allow_tf32 = False
+    t_start = time.perf_counter()
+    card = card_line()
+    say(f"[1] card: {card}")
+    say(f"    torch {torch.__version__}, CUDA {torch.version.cuda}, "
+        f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
+    t0 = time.perf_counter()
+    build.load()
+    say(f"    kernels built from {', '.join(build.SOURCES)} in "
+        f"{time.perf_counter() - t0:.1f} s -> {build.library_path().relative_to(ROOT)}")
+    (build.BUILD_DIR / "build.log").write_text(build.build_log)
+    for line in build.build_log.splitlines():
+        if "registers" in line or "spill" in line:
+            say(f"    ptxas: {line.strip()}")
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    say("[2] kernels against their plain versions")
+    n = check_kernels(torch, gen)
+    say(f"    {n} checks passed: f32 bound, masked == truncated and demand-routed == "
+        f"masked bit for bit")
+    flush = Flush(torch)
+    rows = time_kernels(torch, gen, flush)
+    del flush
+
+    workdir = ROOT / "build" / "smoke"
+    workdir.mkdir(parents=True, exist_ok=True)
+    say("[3] full-width smollm-135m from a compressed, saved and reloaded EdgeArtifact")
+    from repro_torch.configs import get_arch
+
+    launches = serve_full_width(torch, workdir, get_arch("smollm_135m"))
+    say("[4] card against CPU at the 2-layer d64 test config")
+    card_vs_cpu(torch, workdir)
+    for p in workdir.glob("*.npz"):
+        p.unlink()
+
+    for name, row in rows.items():
+        row["launches"] = launches.get(name, 0)
+        row["max_abs_err"] = None
+    errs = max_abs_errors(torch, gen)
+    for name, e in errs.items():
+        rows[name]["max_abs_err"] = e
+    say(f"    total {time.perf_counter() - t_start:.1f} s")
+    say(json.dumps({"kernels": [rows[k] for k in KERNELS]}))
+    say(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                           "kind": torch.cuda.get_device_name(0),
+                                           "count": torch.cuda.device_count()}}))
+    return 0
+
+
+def max_abs_errors(torch, gen) -> dict:
+    """Max |kernel - plain| per kernel over the five shapes (bf16 x)."""
+    from repro_torch.kernels import qsq, ref
+
+    out = {}
+    for name, (masked, m, _, _) in KERNELS.items():
+        worst = 0.0
+        for k, n in SHAPES:
+            x, planes, scales, mask = operands(torch, m, k, n, gen, torch.bfloat16)
+            kw = dict(group_size=GROUP, sign_mag=True, plane_major=True)
+            fn = getattr(qsq, name)
+            got = fn(x, mask, planes, scales, **kw) if masked else fn(x, planes, scales, **kw)
+            want = (ref.qsq_matmul_plane_mask_ref(x, mask, planes, scales, **kw) if masked
+                    else ref.qsq_matmul_ref(x, planes, scales, GROUP, sign_mag=True,
+                                            plane_major=True))
+            worst = max(worst, float((got - want).abs().max()))
+        out[name] = worst
+    return out
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

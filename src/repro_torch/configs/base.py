@@ -1,0 +1,72 @@
+"""Architecture configuration schema (the port of ``repro/configs/base.py``).
+
+Only the fields the dense decoder family reads are ported; ``dtype`` is a
+``torch.dtype``.  Artifacts store the JAX package's full field set, and
+``quant.artifact._arch_from_json`` keeps the fields this class knows.
+"""
+from __future__ import annotations
+
+import dataclasses
+import importlib
+from typing import Any
+
+import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class MoEConfig:
+    n_experts: int
+    top_k: int
+    capacity_factor: float = 1.25
+
+
+@dataclasses.dataclass(frozen=True)
+class HybridConfig:
+    period: int = 8
+    moe_every: int = 2
+
+
+@dataclasses.dataclass(frozen=True)
+class ArchConfig:
+    name: str
+    family: str  # dense | moe | ssm | hybrid | encdec | vlm | cnn
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv: int
+    d_ff: int
+    vocab: int
+    head_dim: int = 0  # 0 -> d_model // n_heads
+    qk_norm: bool = False
+    window: int | None = None  # sliding-window attention
+    rope_theta: float = 10000.0
+    moe: MoEConfig | None = None
+    ssm_state: int = 0
+    ssm_head_dim: int = 64
+    ssm_groups: int = 1
+    ssm_chunk: int = 256
+    hybrid: HybridConfig | None = None
+    enc_layers: int = 0
+    enc_seq: int = 1500
+    cross_every: int = 0
+    vision_tokens: int = 1024
+    dtype: Any = torch.bfloat16
+    remat: bool = True
+    source: str = ""
+
+    @property
+    def hd(self) -> int:
+        return self.head_dim or self.d_model // self.n_heads
+
+
+ARCH_IDS = ["smollm_135m"]
+
+
+def canonical(arch_id: str) -> str:
+    return arch_id.replace("-", "_").replace(".", "_")
+
+
+def get_arch(arch_id: str, smoke: bool = False) -> ArchConfig:
+    """Load configs/<id>.py and return CONFIG (or SMOKE_CONFIG)."""
+    mod = importlib.import_module(f"repro_torch.configs.{canonical(arch_id)}")
+    return mod.SMOKE_CONFIG if smoke else mod.CONFIG

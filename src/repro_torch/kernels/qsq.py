@@ -1,0 +1,162 @@
+"""Wrappers of the four packed-matmul kernels.
+
+Each wrapper checks device, dtype, shape and contiguity, allocates the
+(M, N) f32 output with ``torch.empty``, launches its CUDA kernel
+(``csrc/qsq_matvec.cu``, ``csrc/qsq_matmul.cu``) on the current stream and
+adds one to :data:`launches` under its name.  A CUDA tensor either runs
+the kernel or raises; the plain PyTorch version in ``kernels/ref.py`` runs
+only when the tensors lie on the CPU.
+
+Operands (all kernels): x (M, K) float32 or bfloat16; planes int32,
+interleaved (K//32, 3, N) or plane-major (3, K//32, N); scales (K//G, N)
+float32; the masked kernels also take ``plane_mask`` (M,) int32, one
+3-bit code mask per row from ``ref.MASK_VARIANTS``.
+"""
+from __future__ import annotations
+
+import collections
+
+import torch
+
+from repro_torch.kernels import ref
+
+GEMV_M_MAX = 16  # the GEMV kernels keep all of M in registers
+
+# launches of each kernel, by wrapper name; counted only where a kernel
+# is launched (chip_smoke.py resets and reads them around the main path)
+launches: collections.Counter = collections.Counter()
+
+_X_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def reset_launches() -> None:
+    launches.clear()
+
+
+def _shape(x, planes, scales, group_size: int, plane_major: bool,
+           demand_drop: int) -> tuple[int, int, int]:
+    if x.dim() != 2:
+        raise ValueError(f"x must be (M, K), got {tuple(x.shape)}")
+    m, k = x.shape
+    n = planes.shape[-1]
+    if k % 32 or group_size < 1 or k % group_size:
+        raise ValueError(f"K={k} must be a multiple of 32 and of group_size={group_size}")
+    want = (3, k // 32, n) if plane_major else (k // 32, 3, n)
+    if tuple(planes.shape) != want:
+        raise ValueError(f"planes shape {tuple(planes.shape)} != {want}")
+    if tuple(scales.shape) != (k // group_size, n):
+        raise ValueError(f"scales shape {tuple(scales.shape)} != {(k // group_size, n)}")
+    if not 0 <= demand_drop <= 2:
+        raise ValueError(f"demand_drop must be 0..2, got {demand_drop}")
+    return m, k, n
+
+
+def _on_cpu(*ts) -> bool:
+    devs = {t.device for t in ts}
+    if len(devs) != 1:
+        raise ValueError(f"operands on different devices: {sorted(map(str, devs))}")
+    dev = devs.pop()
+    if dev.type == "cpu":
+        return True
+    if dev.type != "cuda":
+        raise ValueError(f"the QSQ kernels run on CUDA or CPU tensors, not {dev}")
+    return False
+
+
+def _check_cuda(x, planes, scales, plane_mask=None) -> None:
+    if x.dtype not in _X_DTYPES:
+        raise TypeError(f"x must be float32 or bfloat16, got {x.dtype}")
+    if planes.dtype != torch.int32 or scales.dtype != torch.float32:
+        raise TypeError(f"planes int32 and scales float32 expected, got "
+                        f"{planes.dtype} and {scales.dtype}")
+    ops = [x, planes, scales]
+    if plane_mask is not None:
+        if plane_mask.dtype != torch.int32 or tuple(plane_mask.shape) != (x.shape[0],):
+            raise TypeError(f"plane_mask must be int32 of shape ({x.shape[0]},)")
+        ops.append(plane_mask)
+    if not all(t.is_contiguous() for t in ops):
+        raise ValueError("the QSQ kernels take contiguous operands")
+
+
+def _launch(name: str, x, planes, scales, plane_mask, group_size: int,
+            sign_mag: bool, plane_major: bool, tail: int) -> torch.Tensor:
+    from repro_torch.kernels import build  # deferred: builds on first launch
+
+    m, k = x.shape
+    n = planes.shape[-1]
+    out = torch.empty((m, n), dtype=torch.float32, device=x.device)
+    fn = getattr(build.load(), name)
+    ptrs = [x.data_ptr()] + ([plane_mask.data_ptr()] if plane_mask is not None else [])
+    ptrs += [planes.data_ptr(), scales.data_ptr(), out.data_ptr()]
+    rc = fn(*ptrs, m, k, n, group_size, int(x.dtype == torch.bfloat16),
+            int(sign_mag), int(plane_major), tail,
+            torch.cuda.current_stream(x.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"{name} launch failed (M={m}, K={k}, N={n}, "
+                           f"G={group_size}): CUDA error {rc}")
+    launches[name] += 1
+    return out
+
+
+def qsq_matvec(x, planes, scales, *, group_size: int, sign_mag: bool = False,
+               plane_major: bool = False, demand_drop: int = 0) -> torch.Tensor:
+    """K1: small-M x @ decode(planes, scales) -> (M, N) f32; on plane-major
+    planes only the leading ``3 - demand_drop`` planes are read."""
+    m, _, _ = _shape(x, planes, scales, group_size, plane_major, demand_drop)
+    if demand_drop and not plane_major:
+        raise ValueError("demand_drop requires the plane-major layout")
+    if _on_cpu(x, planes, scales):
+        return ref.qsq_matmul_ref(x, planes, scales, group_size, sign_mag=sign_mag,
+                                  plane_major=plane_major, n_planes=3 - demand_drop)
+    if m > GEMV_M_MAX or group_size % 16:
+        raise ValueError(f"qsq_matvec takes M <= {GEMV_M_MAX} and G a multiple of 16; "
+                         f"got M={m}, G={group_size}")
+    _check_cuda(x, planes, scales)
+    return _launch("qsq_matvec", x, planes, scales, None, group_size, sign_mag,
+                   plane_major, 3 - demand_drop)
+
+
+def qsq_matvec_masked(x, plane_mask, planes, scales, *, group_size: int,
+                      sign_mag: bool = False, plane_major: bool = False,
+                      demand_drop: int = 0) -> torch.Tensor:
+    """K2: K1 with one plane mask per row; rows whose mask is not in
+    ``MASK_VARIANTS[demand_drop:]`` come out zero."""
+    m, _, _ = _shape(x, planes, scales, group_size, plane_major, demand_drop)
+    if _on_cpu(x, planes, scales, plane_mask):
+        return ref.qsq_matmul_plane_mask_ref(
+            x, plane_mask, planes, scales, group_size, sign_mag=sign_mag,
+            plane_major=plane_major, demand_drop=demand_drop)
+    if m > GEMV_M_MAX or group_size % 16:
+        raise ValueError(f"qsq_matvec_masked takes M <= {GEMV_M_MAX} and G a multiple "
+                         f"of 16; got M={m}, G={group_size}")
+    _check_cuda(x, planes, scales, plane_mask)
+    return _launch("qsq_matvec_masked", x, planes, scales, plane_mask, group_size,
+                   sign_mag, plane_major, demand_drop)
+
+
+def qsq_matmul(x, planes, scales, *, group_size: int, sign_mag: bool = False,
+               plane_major: bool = False, demand_drop: int = 0) -> torch.Tensor:
+    """K3: tiled GEMM x @ decode(planes, scales) -> (M, N) f32."""
+    _shape(x, planes, scales, group_size, plane_major, demand_drop)
+    if demand_drop and not plane_major:
+        raise ValueError("demand_drop requires the plane-major layout")
+    if _on_cpu(x, planes, scales):
+        return ref.qsq_matmul_ref(x, planes, scales, group_size, sign_mag=sign_mag,
+                                  plane_major=plane_major, n_planes=3 - demand_drop)
+    _check_cuda(x, planes, scales)
+    return _launch("qsq_matmul", x, planes, scales, None, group_size, sign_mag,
+                   plane_major, 3 - demand_drop)
+
+
+def qsq_matmul_masked(x, plane_mask, planes, scales, *, group_size: int,
+                      sign_mag: bool = False, plane_major: bool = False,
+                      demand_drop: int = 0) -> torch.Tensor:
+    """K4: K3 with one plane mask per row (the K2 contract)."""
+    _shape(x, planes, scales, group_size, plane_major, demand_drop)
+    if _on_cpu(x, planes, scales, plane_mask):
+        return ref.qsq_matmul_plane_mask_ref(
+            x, plane_mask, planes, scales, group_size, sign_mag=sign_mag,
+            plane_major=plane_major, demand_drop=demand_drop)
+    _check_cuda(x, planes, scales, plane_mask)
+    return _launch("qsq_matmul_masked", x, planes, scales, plane_mask, group_size,
+                   sign_mag, plane_major, demand_drop)

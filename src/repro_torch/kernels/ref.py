@@ -1,0 +1,116 @@
+"""Plain PyTorch versions of the packed-matmul kernels.
+
+The port of ``repro/kernels/ref.py``: the simplest possible tensor code, no
+tiling.  The kernel wrappers (``kernels/qsq.py``) run these for tensors that
+lie on the CPU; on the card they are the yardstick each CUDA kernel is
+held against, never a fallback.
+
+Two code formats share the 3-bit planes: Table II offset codes
+(``sign_mag=False``) and sign-magnitude codes (``sign_mag=True``).  Two
+layouts: interleaved ``(K//32, 3, N)`` and plane-major ``(3, K//32, N)``
+MSB-first, where a demand-dropped trailing plane is never read.
+
+Precision contract (as the JAX reference's ``w.astype(x.dtype)`` before
+the dot): the weight is the f32 product ``level * alpha``, rounded to x's
+dtype, and the product with x is accumulated in f32.
+"""
+from __future__ import annotations
+
+import collections
+
+import torch
+
+from repro_torch.core import codec
+from repro_torch.core.qsq import codes_to_levels, smcodes_to_levels
+
+# The three plane masks a quality tier can put on a row: keep all 3 code
+# planes, drop the LSB plane, drop the two LSB planes (drop = 0, 1, 2).
+# Demand-driven dispatch restricts a call to ``MASK_VARIANTS[demand_drop:]``.
+MASK_VARIANTS = (0b111, 0b110, 0b100)
+
+# Calls of the two plain matmuls, by name: the main path on a card must
+# leave these at 0 (chip_smoke.py checks it).
+calls: collections.Counter = collections.Counter()
+
+
+def _unpack_codes(planes: torch.Tensor, plane_major: bool, n_planes: int = 3):
+    if plane_major:
+        return codec.unpack_bitplane_major(planes[:n_planes])
+    return codec.unpack_bitplane(planes)
+
+
+def _decode(codes: torch.Tensor, sign_mag: bool) -> torch.Tensor:
+    lev = smcodes_to_levels(codes) if sign_mag else codes_to_levels(codes)
+    return lev.to(torch.float32)
+
+
+def _scale(levels: torch.Tensor, scales: torch.Tensor, group_size: int) -> torch.Tensor:
+    k = levels.shape[0]
+    lev_g = levels.reshape(k // group_size, group_size, *levels.shape[1:])
+    return (lev_g * scales.unsqueeze(1)).reshape(levels.shape)
+
+
+def qsq_dequant_ref(planes, scales, group_size: int, *, sign_mag: bool = False,
+                    plane_major: bool = False, n_planes: int = 3,
+                    code_mask: int = 0b111) -> torch.Tensor:
+    """Bit-plane packed codes + per-group scales -> dense (K, N) f32 weights,
+    with ``code_mask`` ANDed onto every code first (``decode(codes & mask)``
+    equals a plain decode of plane-truncated words)."""
+    codes = _unpack_codes(planes, plane_major, n_planes)
+    return _scale(_decode(codes & code_mask, sign_mag), scales, group_size)
+
+
+def _dot(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x @ w.astype(x.dtype), products accumulated in f32."""
+    return torch.matmul(x.to(torch.float32), w.to(x.dtype).to(torch.float32))
+
+
+def qsq_matmul_ref(x, planes, scales, group_size: int, *, sign_mag: bool = False,
+                   plane_major: bool = False, n_planes: int = 3) -> torch.Tensor:
+    """x (M, K) @ dequant(planes, scales) (K, N) -> (M, N) f32."""
+    calls["qsq_matmul_ref"] += 1
+    w = qsq_dequant_ref(planes, scales, group_size, sign_mag=sign_mag,
+                        plane_major=plane_major, n_planes=n_planes)
+    return _dot(x, w)
+
+
+def qsq_matmul_masked_ref(xs, planes, scales, group_size: int, *,
+                          sign_mag: bool = False, plane_major: bool = False,
+                          demand_drop: int = 0) -> torch.Tensor:
+    """Per-row plane-masked matmul: xs (3 - demand_drop, M, K) -> (M, N) f32.
+
+    ``xs[i]`` holds the rows of x whose plane mask is
+    ``MASK_VARIANTS[demand_drop + i]`` (other rows zeroed); each variant
+    contracts against the weight decoded under its mask and the variants
+    sum, so row m equals ``x[m] @ dequant(truncate(drop_m))``.
+    """
+    calls["qsq_matmul_masked_ref"] += 1
+    n_planes = 3 - demand_drop
+    out = None
+    for i, mask in enumerate(MASK_VARIANTS[demand_drop:]):
+        w = qsq_dequant_ref(planes, scales, group_size, sign_mag=sign_mag,
+                            plane_major=plane_major, n_planes=n_planes, code_mask=mask)
+        d = _dot(xs[i], w)
+        out = d if out is None else out + d
+    return out
+
+
+def variant_split(x: torch.Tensor, plane_mask: torch.Tensor,
+                  demand_drop: int) -> torch.Tensor:
+    """(M, K) x + (M,) per-row code masks -> the (3 - demand_drop, M, K)
+    stack the masked reference takes: ``xs[i]`` keeps exactly the rows masked
+    ``MASK_VARIANTS[demand_drop + i]``.  A row whose mask matches no demanded
+    variant is zero in every slice, so its output row is zero."""
+    sel = torch.stack([plane_mask == v for v in MASK_VARIANTS[demand_drop:]])
+    return torch.where(sel[:, :, None], x[None], torch.zeros((), dtype=x.dtype,
+                                                             device=x.device))
+
+
+def qsq_matmul_plane_mask_ref(x, plane_mask, planes, scales, group_size: int, *,
+                              sign_mag: bool = False, plane_major: bool = False,
+                              demand_drop: int = 0) -> torch.Tensor:
+    """The masked reference on a per-row ``plane_mask`` (M,) int32 operand —
+    the form the masked CUDA kernels take."""
+    return qsq_matmul_masked_ref(variant_split(x, plane_mask, demand_drop), planes,
+                                 scales, group_size, sign_mag=sign_mag,
+                                 plane_major=plane_major, demand_drop=demand_drop)

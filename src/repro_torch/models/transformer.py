@@ -1,0 +1,124 @@
+"""Dense decoder-only LM (the port of ``repro/models/transformer.py``).
+
+Layer parameters stay stacked along a leading L axis, as in the JAX
+package; a Python loop over layers takes the place of its ``lax.scan``.
+Public functions keep the JAX layouts: ``(B, S, vocab)`` f32 logits and a
+cache whose ``kv`` leaves carry (L, B, ...) axes.
+"""
+from __future__ import annotations
+
+from typing import Any, NamedTuple
+
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.models import layers as L
+from repro_torch.models.base import map_stacked
+from repro_torch.quant.store import PackedWeight, is_store
+from repro_torch.tree import tree_map
+
+
+def _block_descs(cfg: ArchConfig) -> dict:
+    return {
+        "ln1": L.rmsnorm_desc(cfg.d_model),
+        "attn": L.attn_descs(cfg.d_model, cfg.n_heads, cfg.n_kv, cfg.hd,
+                             qk_norm=cfg.qk_norm, dtype=cfg.dtype),
+        "ln2": L.rmsnorm_desc(cfg.d_model),
+        "mlp": L.mlp_descs(cfg.d_model, cfg.d_ff, dtype=cfg.dtype),
+    }
+
+
+def lm_descs(cfg: ArchConfig) -> dict:
+    return {
+        "embed": L.embed_descs(cfg.vocab, cfg.d_model, dtype=cfg.dtype),
+        "final_norm": L.rmsnorm_desc(cfg.d_model),
+        "blocks": map_stacked(cfg.n_layers, _block_descs(cfg)),
+    }
+
+
+def layer_params(blocks: dict, i: int) -> dict:
+    """Layer ``i`` of the stacked block params (views, no copies)."""
+
+    def _take(a):
+        if isinstance(a, PackedWeight):
+            return a.layer(i)
+        if is_store(a):
+            raise ValueError("stacked QSQ leaves must be served (serve_tree) first")
+        return a[i]
+
+    return tree_map(_take, blocks, is_leaf=is_store)
+
+
+class LMCache(NamedTuple):
+    kv: Any  # KVCache with leading (L,) stacked axis
+
+
+def lm_cache_descs(cfg: ArchConfig, batch: int, cache_len: int) -> LMCache:
+    return LMCache(kv=map_stacked(
+        cfg.n_layers, L.kv_cache_descs(batch, cache_len, cfg.n_kv, cfg.hd, cfg.dtype)))
+
+
+def _layer_cache(kv: L.KVCache, i: int) -> L.KVCache:
+    return L.KVCache(k=kv.k[i], v=kv.v[i], pos=kv.pos[i], pad=kv.pad[i])
+
+
+def lm_decode(params: dict, cfg: ArchConfig, cache: LMCache, tokens: torch.Tensor,
+              active: torch.Tensor | None = None, tiers: torch.Tensor | None = None,
+              demand: int | None = None) -> tuple[torch.Tensor, LMCache]:
+    """One decode token per slot: tokens (B, 1) -> logits (B, 1, vocab) f32.
+    The k/v of the new token are written into ``cache`` in place."""
+    x = L.embed(params["embed"], tokens, cfg.dtype)
+    kv = cache.kv
+    pos = []
+    for i in range(cfg.n_layers):
+        bp = layer_params(params["blocks"], i)
+        h, c2 = L.decode_attention(
+            bp["attn"], L.rmsnorm(x, bp["ln1"]), _layer_cache(kv, i),
+            theta=cfg.rope_theta, window=cfg.window, active=active,
+            tiers=tiers, demand=demand)
+        x = x + h
+        x = x + L.mlp(bp["mlp"], L.rmsnorm(x, bp["ln2"]), tiers=tiers, demand=demand)
+        pos.append(c2.pos)
+    x = L.rmsnorm(x, params["final_norm"])
+    new_kv = L.KVCache(k=kv.k, v=kv.v, pos=torch.stack(pos), pad=kv.pad)
+    return L.lm_head(params["embed"], x, tiers=tiers, demand=demand), LMCache(kv=new_kv)
+
+
+def lm_prefill(params: dict, cfg: ArchConfig, cache: LMCache, tokens: torch.Tensor,
+               lengths: torch.Tensor, tiers: torch.Tensor | None = None,
+               demand: int | None = None) -> tuple[LMCache, torch.Tensor]:
+    """One-pass cache prefill of left-padded prompts (B, S) with real
+    lengths (B,): returns (a new primed cache, last-position logits (B, V))."""
+    b, s = tokens.shape
+    pad = (s - lengths).to(torch.int32)
+    x = L.embed(params["embed"], tokens, cfg.dtype)
+    positions = torch.clamp(
+        torch.arange(s, dtype=torch.int32, device=tokens.device)[None, :] - pad[:, None],
+        min=0)
+    ks, vs, pos, pads = [], [], [], []
+    for i in range(cfg.n_layers):
+        bp = layer_params(params["blocks"], i)
+        h, c2 = L.prefill_attention(
+            bp["attn"], L.rmsnorm(x, bp["ln1"]), _layer_cache(cache.kv, i),
+            positions=positions, pad=pad, theta=cfg.rope_theta, window=cfg.window,
+            tiers=tiers, demand=demand)
+        x = x + h
+        x = x + L.mlp(bp["mlp"], L.rmsnorm(x, bp["ln2"]), tiers=tiers, demand=demand)
+        ks.append(c2.k)
+        vs.append(c2.v)
+        pos.append(c2.pos)
+        pads.append(c2.pad)
+    x = L.rmsnorm(x[:, -1:], params["final_norm"])  # only the last position
+    logits = L.lm_head(params["embed"], x, tiers=tiers, demand=demand)
+    kv = L.KVCache(k=torch.stack(ks), v=torch.stack(vs), pos=torch.stack(pos),
+                   pad=torch.stack(pads))
+    return LMCache(kv=kv), logits[:, 0]
+
+
+def lm_cache_insert_slot(live: LMCache, one: LMCache, slot: int) -> LMCache:
+    """Admit a request: write a prefilled single-slot cache into lane
+    ``slot`` of the live multi-slot cache, in place (batch is axis 1 of
+    every ``kv`` leaf; axis 0 is the layer stack)."""
+    for dst, src in zip(live.kv, one.kv, strict=True):
+        dst[:, slot] = src[:, 0].to(dst.dtype)
+    return live

@@ -1,0 +1,428 @@
+"""Continuous-batching serving engine (the port of ``repro/serve/engine.py``).
+
+Engines are built through ``EdgeArtifact.engine(quality=..., device=...)``:
+matmul weights stay packed bit-planes on the device and every packed
+matmul runs a CUDA kernel.  ``submit`` enqueues a prompt; each ``step``
+enforces deadlines, admits queued requests into FREE slots (one
+single-slot prefill at the request's own tier plus an in-place lane
+insert, first token argmaxed on the device) and then runs ONE fixed-width
+greedy decode over all lanes, with per-slot tiers as per-row plane masks
+and the batch's minimum live tier as the plane-demand floor.  Each step
+syncs the host once, on the (B,) next tokens.
+
+The cost clock, deadlines, cancellation, ``QualityShed`` admission,
+``stream_stats`` and the analytic byte meter follow the JAX engine
+exactly.  Not ported yet (ROADMAP Queue 1, item 0): speculative decoding
+(``submit(speculate=...)``) and the static/sampling path
+(``ServeConfig(continuous=False)`` or ``temperature > 0``).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Sequence
+
+import numpy as np
+import torch
+
+from repro_torch.models.base import init_params, resolve_device
+from repro_torch.serve.admission import ADMIT, REJECT, SHED, AdmissionPolicy, LoadView
+from repro_torch.serve.scheduler import (
+    FinishReason,
+    RequestStatus,
+    Scheduler,
+    SpecConfig,
+    SubmitRejected,
+    plane_demand,
+)
+from repro_torch.train.step import make_admit_step, make_cont_decode_step
+from repro_torch.tree import tree_leaves
+
+_SPEC_TODO = "speculative decoding is not ported yet: ROADMAP Queue 1, item 0"
+_STATIC_TODO = ("the static two-program path (continuous=False, temperature > 0) is "
+                "not ported yet: ROADMAP Queue 1, item 0")
+
+
+@dataclasses.dataclass(frozen=True)
+class ServeConfig:
+    batch_slots: int = 8
+    max_len: int = 256    # continuous sessions: KV cache length per slot
+    temperature: float = 0.0  # 0 => greedy; > 0 => sampling (not ported)
+    packed: bool = True  # keep matmul weights in bit-plane form
+    continuous: bool = True
+    max_prompt: int = 64  # continuous sessions: fixed prefill width
+    max_queue: int | None = None
+    admission: AdmissionPolicy | None = None
+
+
+@dataclasses.dataclass(frozen=True)
+class StepInfo:
+    """What one :meth:`ServeEngine.step` did — host-side accounting only."""
+
+    admitted: tuple[int, ...]
+    finished: tuple[int, ...]
+    timed_out: tuple[int, ...]
+    live: int
+    demand: int | None
+    cost: float
+
+
+class _Session:
+    """Device state of one continuous stream: the live multi-slot cache, the
+    per-slot current tokens / active mask / tiers, and the host scheduler."""
+
+    def __init__(self, model, slots: int, prefill_len: int, cache_len: int,
+                 device, max_queue: int | None = None):
+        if prefill_len < 1:
+            raise ValueError(f"prefill width must be >= 1, got {prefill_len}")
+        if prefill_len >= cache_len:
+            raise ValueError(f"cache_len {cache_len} leaves no decode room after the "
+                             f"{prefill_len}-token prefill window")
+        self.prefill_len = prefill_len
+        self.cache_len = cache_len
+        self.sched = Scheduler(slots, max_queue=max_queue)
+        self.cache = init_params(model.cache_descs(slots, cache_len), device=device)
+        # zeroed batch-1 cache reused by every admission (prefill never writes it)
+        self.zero_slot_cache = init_params(model.cache_descs(1, cache_len), device=device)
+        self.cur = np.zeros((slots, 1), np.int32)
+        self.active = np.zeros((slots,), np.int32)
+        self.tiers = np.zeros((slots,), np.int32)
+        self.step_idx = 0
+        self.now = 0.0
+        self.plane_words_read = 0
+        self.plane_words_full = 0
+        self.tokens_emitted = 0
+
+
+class ServeEngine:
+    def __init__(self, model, params, cfg: ServeConfig, device="cuda"):
+        self.model = model
+        self.cfg = cfg
+        self.params = params
+        self.device = resolve_device(device)
+        self.n_packed_leaves = 0
+        self.artifact = None
+        self.quality: str | None = None
+        self.tier_names: list[str] | None = None
+        self.tier_ceiling: int = 0
+        self._cont_step = make_cont_decode_step(model)
+        self._admit = make_admit_step(model)
+        self._session: _Session | None = None
+        self._plane_words_cache: dict[int, tuple[int, int]] = {}
+
+    def _t(self, a: np.ndarray) -> torch.Tensor:
+        return torch.as_tensor(a).to(self.device)
+
+    # -- quality dial ------------------------------------------------------
+    @property
+    def per_request_quality(self) -> bool:
+        return self.tier_names is not None
+
+    def _clamp_ceiling(self, quality: str | None) -> str | None:
+        if (self.tier_ceiling and self.tier_names is not None and quality is not None
+                and self.tier_names.index(quality) < self.tier_ceiling):
+            return self.tier_names[self.tier_ceiling]
+        return quality
+
+    def _resolve_quality(self, quality: str | None) -> str | None:
+        if quality is None:
+            return self._clamp_ceiling(self.quality)
+        if self.tier_names is None:
+            raise ValueError("per-request quality needs an engine with per-tier packed "
+                             "weights (EdgeArtifact.engine); this engine serves one tier")
+        if quality not in self.tier_names:
+            raise KeyError(f"unknown quality tier {quality!r}; this engine has "
+                           f"{self.tier_names}")
+        return self._clamp_ceiling(quality)
+
+    def _tier_index(self, quality: str | None) -> int:
+        if self.tier_names is None or quality is None:
+            return 0
+        return self.tier_names.index(quality)
+
+    def set_quality(self, quality: str) -> "ServeEngine":
+        """Per-request engines: move the default tier.  Single-tier engines:
+        re-resolve the params at the new tier (the stream must be idle)."""
+        if self.artifact is None:
+            raise ValueError("this engine was not built from an EdgeArtifact")
+        if self.per_request_quality:
+            self.quality = self._resolve_quality(quality)
+            return self
+        if self.has_work:
+            raise RuntimeError("cannot re-dial quality while a continuous stream has "
+                               "live requests; run_until_drained() first")
+        self._session = None
+        self._plane_words_cache.clear()
+        self.params, self.n_packed_leaves = self.artifact.serve_params(
+            quality, packed=self.cfg.packed, device=self.device)
+        self.quality = quality
+        return self
+
+    # -- continuous batching ------------------------------------------------
+    def _require_continuous(self):
+        if self.cfg.temperature > 0 or not self.cfg.continuous:
+            raise NotImplementedError(_STATIC_TODO)
+
+    def _ensure_session(self) -> _Session:
+        if self._session is None:
+            self._session = _Session(self.model, self.cfg.batch_slots,
+                                     prefill_len=self.cfg.max_prompt,
+                                     cache_len=self.cfg.max_len, device=self.device,
+                                     max_queue=self.cfg.max_queue)
+        return self._session
+
+    def _admission_view(self, s: _Session) -> LoadView:
+        names = (tuple(self.tier_names) if self.tier_names is not None
+                 else (self.quality or "default",))
+        return LoadView(
+            step=s.step_idx, now=s.now, n_slots=s.sched.n_slots,
+            tier_names=names, tier_costs=self.tier_cost_table(),
+            queued=tuple((self._tier_index(r.quality), r.max_new) for r in s.sched.queue),
+            live=tuple((self._tier_index(r.quality), max(r.max_new - len(r.out), 0))
+                       for r in s.sched.slot_req if r is not None),
+        )
+
+    def submit(self, prompt: Sequence[int], max_new: int = 32, quality: str | None = None,
+               deadline: float | None = None, speculate: SpecConfig | None = None) -> int:
+        """Enqueue one prompt on the continuous stream; returns a request id
+        (see the JAX engine's ``submit`` for the full contract)."""
+        if speculate is not None:
+            raise NotImplementedError(_SPEC_TODO)
+        self._require_continuous()
+        quality = self._resolve_quality(quality)
+        requested = quality
+        s = self._ensure_session()
+        if len(prompt) > s.prefill_len:
+            raise SubmitRejected(
+                f"prompt of {len(prompt)} tokens exceeds the stream's fixed "
+                f"{s.prefill_len}-token prefill window; raise ServeConfig.max_prompt")
+        if s.prefill_len + max_new > s.cache_len:
+            raise SubmitRejected(
+                f"prefill window {s.prefill_len} + max_new {max_new} exceeds the "
+                f"{s.cache_len}-entry slot cache; raise ServeConfig.max_len")
+        if deadline is not None and not deadline > 0:
+            raise SubmitRejected(f"deadline must be a positive cost-clock budget, "
+                                 f"got {deadline}")
+        if s.sched.queue_full:
+            return s.sched.finish_unadmitted(
+                prompt, max_new, s.step_idx, FinishReason.REJECTED, quality=quality,
+                requested=requested, arrival_t=s.now,
+                detail=f"bounded queue full (max_queue={s.sched.max_queue})")
+        if self.cfg.admission is not None:
+            d = self.cfg.admission.decide(self._tier_index(quality), max_new,
+                                          self._admission_view(s))
+            if d.action == ADMIT:
+                if d.tier is not None and self.tier_names is not None:
+                    quality = self.tier_names[max(int(d.tier), self.tier_ceiling)]
+            elif d.action in (SHED, REJECT):
+                reason = FinishReason.SHED if d.action == SHED else FinishReason.REJECTED
+                return s.sched.finish_unadmitted(
+                    prompt, max_new, s.step_idx, reason, quality=quality,
+                    requested=requested, arrival_t=s.now, detail=d.detail)
+            else:
+                raise ValueError(f"admission policy returned unknown action {d.action!r}")
+        abs_deadline = None if deadline is None else s.now + float(deadline)
+        return s.sched.submit(prompt, max_new, arrival=s.step_idx, quality=quality,
+                              requested=requested, deadline=abs_deadline, arrival_t=s.now)
+
+    def cancel(self, rid: int) -> RequestStatus:
+        """Caller-initiated abort (queued: removed; live: evicted)."""
+        if self._session is None:
+            raise KeyError(f"unknown request id {rid} (no active stream)")
+        s = self._session
+        _, slot = s.sched.cancel(rid, s.step_idx, s.now)
+        if slot is not None:
+            s.active[slot] = 0
+        return s.sched.status(rid)
+
+    def _forward_plane_words(self, demand: int) -> tuple[int, int]:
+        """(words_read, words_full): packed plane words ONE forward streams at
+        plane-demand floor ``demand`` vs. reading every plane (analytic)."""
+        from repro_torch.quant.store import PackedWeight
+
+        cached = self._plane_words_cache.get(demand)
+        if cached is not None:
+            return cached
+        read = full = 0
+        for leaf in tree_leaves(self.params, is_leaf=lambda x: isinstance(x, PackedWeight)):
+            if not isinstance(leaf, PackedWeight):
+                continue
+            words = leaf.planes.numel() // 3
+            full += 3 * words
+            n_read = 3 - leaf.demand_drop(demand) if leaf.plane_major else 3
+            read += n_read * words
+        self._plane_words_cache[demand] = (read, full)
+        return read, full
+
+    def _dispatch_cost(self, demand: int) -> float:
+        read, full = self._forward_plane_words(demand)
+        return read / full if full else 1.0
+
+    def tier_cost_table(self) -> tuple[float, ...]:
+        n = len(self.tier_names) if self.tier_names is not None else 1
+        return tuple(self._dispatch_cost(t) for t in range(n))
+
+    def stream_stats(self) -> dict:
+        """Demand-streaming meter of the current stream (bytes per token);
+        the speculation keys are the JAX engine's and stay 0 here."""
+        s = self._session
+        if s is None or s.tokens_emitted == 0:
+            return {"tokens": 0, "bytes_read": 0, "bytes_full": 0,
+                    "bytes_per_token": 0.0, "read_frac": 1.0,
+                    "drafted": 0, "accepted": 0, "acceptance_rate": 0.0}
+        bytes_read = 4 * s.plane_words_read
+        bytes_full = 4 * s.plane_words_full
+        return {
+            "tokens": s.tokens_emitted,
+            "bytes_read": bytes_read,
+            "bytes_full": bytes_full,
+            "bytes_per_token": bytes_read / s.tokens_emitted,
+            "read_frac": bytes_read / bytes_full if bytes_full else 1.0,
+            "drafted": 0, "accepted": 0, "acceptance_rate": 0.0,
+        }
+
+    def _meter(self, s: _Session, demand: int) -> float:
+        r, f = self._forward_plane_words(demand)
+        s.plane_words_read += r
+        s.plane_words_full += f
+        return self._dispatch_cost(demand)
+
+    def step(self) -> StepInfo:
+        """One scheduler iteration: deadlines, admissions (each a single-slot
+        prefill at the request's tier, first token from its logits), then
+        one decode over all lanes at the batch's plane-demand floor."""
+        s = self._ensure_session()
+        admitted: list[int] = []
+        finished: list[int] = []
+        timed_out: list[int] = []
+        cost = 0.0
+        for req in s.sched.expire_queued(s.step_idx, s.now):
+            timed_out.append(req.rid)
+        for slot in s.sched.expired_decoding(s.now):
+            req = s.sched.release(slot, s.step_idx, s.now, FinishReason.TIMED_OUT)
+            s.active[slot] = 0
+            timed_out.append(req.rid)
+        for slot, req in s.sched.admissible():
+            s.sched.activate(slot, req, s.step_idx, now=s.now)
+            s.tiers[slot] = self._tier_index(req.quality)
+            admitted.append(req.rid)
+            toks = np.zeros((1, s.prefill_len), np.int32)
+            toks[0, s.prefill_len - len(req.tokens):] = req.tokens
+            demand = int(s.tiers[slot])
+            s.cache, first = self._admit(
+                self.params, s.zero_slot_cache, s.cache, self._t(toks),
+                self._t(np.asarray([len(req.tokens)], np.int32)), slot,
+                self._t(s.tiers[slot:slot + 1]), demand)
+            cost += self._meter(s, demand)
+            s.tokens_emitted += 1
+            first = int(first)  # the admission's one host sync
+            s.sched.start_decoding(slot)
+            s.cur[slot, 0] = first
+            if s.sched.record(slot, first, s.step_idx, now=s.now):
+                s.sched.evict(slot)
+                finished.append(req.rid)
+            else:
+                s.active[slot] = 1
+        live = s.sched.decoding_slots()
+        demand_used: int | None = None
+        if live:
+            demand = plane_demand(s.tiers[slot] for slot in live)
+            demand_used = demand
+            nxt, s.cache = self._cont_step(self.params, s.cache, self._t(s.cur),
+                                           self._t(s.active), self._t(s.tiers), demand)
+            cost += self._meter(s, demand)
+            s.tokens_emitted += len(live)
+            nxt = nxt.cpu().numpy()  # the step's one host sync
+            for slot in live:
+                s.cur[slot, 0] = nxt[slot]
+                rid = s.sched.slot_req[slot].rid
+                if s.sched.record(slot, int(nxt[slot]), s.step_idx, now=s.now):
+                    s.sched.evict(slot)
+                    s.active[slot] = 0
+                    finished.append(rid)
+        s.step_idx += 1
+        s.now += cost
+        return StepInfo(admitted=tuple(admitted), finished=tuple(finished),
+                        timed_out=tuple(timed_out), live=len(live),
+                        demand=demand_used, cost=cost)
+
+    def poll(self, rid: int | None = None):
+        """Structured request status; ``poll()`` hands out every request that
+        terminated since the last bare poll."""
+        if self._session is None:
+            if rid is None:
+                return {}
+            raise KeyError(f"unknown request id {rid} (no active stream)")
+        return self._session.sched.poll(rid)
+
+    # -- stream introspection ----------------------------------------------
+    @property
+    def has_work(self) -> bool:
+        return self._session is not None and self._session.sched.has_work
+
+    @property
+    def now(self) -> float:
+        """The stream cost clock (a full-quality dispatch = 1.0)."""
+        return 0.0 if self._session is None else self._session.now
+
+    def advance_clock(self, dt: float) -> float:
+        if dt < 0:
+            raise ValueError(f"cannot rewind the cost clock (dt={dt})")
+        s = self._ensure_session()
+        s.now += float(dt)
+        return s.now
+
+    def reset_stream(self) -> None:
+        self._session = None
+
+    def run_until_drained(self, max_ticks: int | None = None):
+        """step() until the queue and every slot are empty; returns what
+        :meth:`poll` would.  ``max_ticks`` is a watchdog."""
+        s = self._ensure_session()
+        if max_ticks is None:
+            outstanding = sum(r.max_new for r in s.sched.queue)
+            outstanding += sum(max(r.max_new - len(r.out), 1)
+                               for r in s.sched.slot_req if r is not None)
+            max_ticks = 2 * outstanding + s.sched.n_slots + 16
+        n = 0
+        while s.sched.has_work:
+            if n >= max_ticks:
+                raise RuntimeError(
+                    f"run_until_drained watchdog: stream not drained after {n} ticks "
+                    f"({len(s.sched.queue)} queued, {len(s.sched.decoding_slots())} "
+                    f"decoding)")
+            self.step()
+            n += 1
+        return self.poll()
+
+    # -- generation ----------------------------------------------------------
+    def generate(self, prompts: Sequence[Sequence[int]], max_new: int = 32,
+                 seed: int = 0, qualities=None):
+        """Greedy decode of a batch of prompts through the continuous
+        scheduler (submit all, drain).  Returns lists of ids."""
+        if len(prompts) == 0:
+            return []
+        if any(len(p) == 0 for p in prompts):
+            raise ValueError("every prompt must contain at least one token")
+        b = len(prompts)
+        if b > self.cfg.batch_slots:
+            raise ValueError(f"{b} prompts exceed the engine's {self.cfg.batch_slots} "
+                             f"batch_slots")
+        if max_new < 1:
+            return [[] for _ in prompts]
+        if isinstance(qualities, str):
+            qualities = [qualities] * b
+        if qualities is not None and len(qualities) != b:
+            raise ValueError(f"{len(qualities)} qualities for {b} prompts")
+        self._require_continuous()
+        maxp = max(len(p) for p in prompts)
+        saved = self._session
+        self._session = _Session(self.model, self.cfg.batch_slots, prefill_len=maxp,
+                                 cache_len=maxp + max_new + 1, device=self.device)
+        try:
+            rids = [self.submit(p, max_new=max_new,
+                                quality=None if qualities is None else qualities[i])
+                    for i, p in enumerate(prompts)]
+            done = self.run_until_drained()
+            return [done[r].tokens for r in rids]
+        finally:
+            self._session = saved

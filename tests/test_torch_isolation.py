@@ -1,0 +1,104 @@
+"""The port stands alone: no JAX and nothing of the JAX package.
+
+* An AST scan finds no import of ``jax`` or ``repro`` in any file under
+  ``src/repro_torch/`` or in ``chip_smoke.py``.
+* ``import repro_torch.api`` succeeds in a fresh interpreter where
+  ``import jax`` is made to fail.
+* An entry point called without ``device`` on a machine without CUDA
+  raises instead of running on the CPU.
+"""
+import ast
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from torch_port_scope import port_modules
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _port():
+    """The tests below import the port; keep it to this file (see
+    ``torch_port_scope``)."""
+    with port_modules():
+        yield
+
+
+def _imported_roots(path: Path) -> set[str]:
+    roots = set()
+    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+        if isinstance(node, ast.Import):
+            roots.update(a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            roots.add(node.module.split(".")[0])
+        elif isinstance(node, ast.Call) and getattr(node.func, "attr", "") == "import_module":
+            if node.args and isinstance(node.args[0], ast.Constant):
+                roots.add(str(node.args[0].value).split(".")[0])
+            elif node.args and isinstance(node.args[0], ast.JoinedStr):
+                head = node.args[0].values[0]
+                if isinstance(head, ast.Constant):
+                    roots.add(str(head.value).split(".")[0])
+    return roots
+
+
+def test_port_file_list_is_complete():
+    names = {p.name for p in PORT_FILES}
+    assert {"api.py", "engine.py", "store.py", "qsq.py", "chip_smoke.py"} <= names
+    assert len(PORT_FILES) > 20
+
+
+def test_no_jax_or_reference_import():
+    bad = {str(p.relative_to(ROOT)): sorted(_imported_roots(p) & {"jax", "jaxlib", "repro"})
+           for p in PORT_FILES}
+    assert not {p: b for p, b in bad.items() if b}
+
+
+def test_port_imports_with_jax_blocked():
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['repro'] = None\n"
+        "import repro_torch.api, repro_torch.serve.engine, repro_torch.kernels.build\n"
+        "assert not [m for m in sys.modules if sys.modules[m] is not None\n"
+        "            and (m in ('jax', 'repro') or m.startswith(('jax.', 'repro.')))]\n"
+        "print('ok')\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         cwd=ROOT, env={"PYTHONPATH": str(ROOT / "src"), "PATH": ""},
+                         timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
+def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
+    from repro_torch import api
+    from repro_torch.configs import get_arch
+    from repro_torch.models.api import Model
+    from repro_torch.models.base import init_params
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    model = Model(get_arch("smollm_135m", smoke=True))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        init_params(model.param_descs())
+    params = init_params(model.param_descs(), device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        api.compress(model, params)
+    art = api.compress(model, params, device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        art.engine(quality="hi", batch_slots=1)
+
+
+def test_kernel_wrapper_refuses_other_devices():
+    from repro_torch.kernels import qsq
+
+    x = torch.zeros((2, 32), device="meta")
+    planes = torch.zeros((3, 1, 8), dtype=torch.int32, device="meta")
+    scales = torch.zeros((2, 8), device="meta")
+    with pytest.raises(ValueError, match="CUDA or CPU"):
+        qsq.qsq_matvec(x, planes, scales, group_size=16, plane_major=True)

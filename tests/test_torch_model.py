@@ -1,0 +1,161 @@
+"""The port's dense decoder against the JAX ``Model``.
+
+* ``params_from_numpy`` carries a JAX parameter tree across and back.
+* Prefill of left-padded prompts and N decode steps, per tier and on a
+  mixed-tier batch, run on the same served tree in both packages (one
+  artifact npz): logits agree within atol = rtol = 1e-4 in f32, and so do
+  the KV caches after prefill and after every step (per-slot ``pos`` and
+  ``pad`` exactly).
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax
+import jax.numpy as jnp
+from torch_port_scope import port_modules
+
+from repro import api as japi
+from repro.configs.base import ArchConfig as JArch
+from repro.models.api import Model as JModel
+from repro.models.base import init_params as jinit
+from repro.train.step import make_cache_prefill_step as jprefill_step
+
+CFG = dict(name="smollm-bench", family="dense", n_layers=2, d_model=64, n_heads=4,
+           n_kv=2, d_ff=128, vocab=256, remat=False)
+TOL = dict(atol=1e-4, rtol=1e-4)
+N_STEPS = 3
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _port():
+    """Import the port for this file only (see ``torch_port_scope``)."""
+    global tapi, TArch, params_from_numpy, params_to_numpy, TModel, tinit, is_desc, tree_map
+    with port_modules():
+        from repro_torch import api as tapi
+        from repro_torch.configs.base import ArchConfig as TArch
+        from repro_torch.convert import params_from_numpy, params_to_numpy
+        from repro_torch.models.api import Model as TModel
+        from repro_torch.models.base import init_params as tinit
+        from repro_torch.models.base import is_desc
+        from repro_torch.tree import tree_map
+        yield
+
+
+def numpy_params(seed: int) -> dict:
+    rng = np.random.default_rng(seed)
+    descs = TModel(TArch(**CFG, dtype=torch.float32)).param_descs()
+
+    def draw(d):
+        if d.init == "ones":
+            return np.ones(d.shape, np.float32)
+        std = {"fan_in": d.scale / np.sqrt(d.shape[-2]), "normal": d.scale * 0.02}[d.init]
+        return (rng.standard_normal(d.shape) * std).astype(np.float32)
+
+    return tree_map(draw, descs, is_leaf=is_desc)
+
+
+def test_params_from_numpy_roundtrip():
+    jm = JModel(JArch(**CFG, dtype=jnp.float32))
+    jp = jinit(jax.random.PRNGKey(0), jm.param_descs())
+    tp = params_from_numpy(jax.tree_util.tree_map(np.asarray, jp), device="cpu")
+    back = params_to_numpy(tp)
+    jflat = jax.tree_util.tree_flatten_with_path(jp)[0]
+    assert len(jflat) == 12
+    for path, leaf in jflat:
+        node = back
+        for k in path:
+            node = node[k.key]
+        np.testing.assert_array_equal(node, np.asarray(leaf))
+
+
+def test_params_from_numpy_bfloat16_bit_exact():
+    x = jnp.asarray(np.random.default_rng(0).standard_normal((4, 5)), dtype=jnp.bfloat16)
+    t = params_from_numpy({"w": np.asarray(x)}, device="cpu")["w"]
+    assert t.dtype == torch.bfloat16
+    np.testing.assert_array_equal(t.float().numpy(), np.asarray(x, dtype=np.float32))
+
+
+def test_init_params_uses_generator_and_desc_kinds():
+    descs = TModel(TArch(**CFG, dtype=torch.float32)).param_descs()
+    a = tinit(descs, torch.Generator().manual_seed(3), device="cpu")
+    b = tinit(descs, torch.Generator().manual_seed(3), device="cpu")
+    assert torch.equal(a["blocks"]["mlp"]["wg"], b["blocks"]["mlp"]["wg"])
+    assert torch.equal(a["final_norm"], torch.ones(64))
+    std = float(a["blocks"]["mlp"]["wg"].std())
+    assert abs(std - 1 / np.sqrt(64)) < 0.02
+
+
+@pytest.fixture(scope="module")
+def served(tmp_path_factory):
+    """Both packages' per-request served trees from one port-written npz."""
+    model = TModel(TArch(**CFG, dtype=torch.float32))
+    art = tapi.compress(model, params_from_numpy(numpy_params(2), device="cpu"),
+                        device="cpu")
+    path = art.save(tmp_path_factory.mktemp("model_art") / "model.edge.npz")
+    jm = JModel(JArch(**CFG, dtype=jnp.float32))
+    jparams, _ = japi.load(path).serve_params("hi", per_request=True)
+    tparams, _ = tapi.load(path).serve_params("hi", per_request=True, device="cpu")
+    jprefill = jax.jit(jprefill_step(jm), static_argnums=(5,))
+    jdecode = jax.jit(lambda p, c, tok, act, tiers, demand: jm.decode(
+        p, c, {"tokens": tok, "active": act, "tiers": tiers, "demand": demand}),
+        static_argnums=(5,))
+    return jm, jparams, jprefill, jdecode, model, tparams
+
+
+def _assert_cache_close(jc, tc):
+    np.testing.assert_allclose(tc.kv.k.numpy(), np.asarray(jc.kv.k), **TOL)
+    np.testing.assert_allclose(tc.kv.v.numpy(), np.asarray(jc.kv.v), **TOL)
+    np.testing.assert_array_equal(tc.kv.pos.numpy(), np.asarray(jc.kv.pos))
+    np.testing.assert_array_equal(tc.kv.pad.numpy(), np.asarray(jc.kv.pad))
+
+
+@pytest.mark.parametrize("tiers", [(0, 0, 0), (1, 1, 1), (2, 2, 2), (2, 0, 1)])
+def test_prefill_and_decode_match_jax(served, tiers):
+    jm, jparams, jprefill, jdecode, tm, tparams = served
+    rng = np.random.default_rng(sum(tiers))
+    b, s, t = 3, 8, 16
+    lens = np.array([8, 3, 5], np.int32)
+    toks = np.zeros((b, s), np.int32)
+    for i, n in enumerate(lens):
+        toks[i, s - n:] = rng.integers(0, CFG["vocab"], size=n)
+    tier_arr = np.array(tiers, np.int32)
+    demand = int(tier_arr.min())
+
+    jcache = jinit(jax.random.PRNGKey(0), jm.cache_descs(b, t))
+    jcache, jlog = jprefill(jparams, jcache, jnp.asarray(toks), jnp.asarray(lens),
+                            jnp.asarray(tier_arr), demand)
+    tcache = tinit(tm.cache_descs(b, t), device="cpu")
+    tcache, tlog = tm.prefill(tparams, tcache, torch.from_numpy(toks),
+                              torch.from_numpy(lens), torch.from_numpy(tier_arr), demand)
+    np.testing.assert_allclose(tlog.numpy(), np.asarray(jlog), **TOL)
+    _assert_cache_close(jcache, tcache)
+
+    cur = np.asarray(jnp.argmax(jlog, axis=-1)).astype(np.int32)[:, None]
+    active = np.array([1, 1, 0], np.int32)  # a dead lane must hold its pos
+    for _ in range(N_STEPS):
+        jl, jcache = jdecode(jparams, jcache, jnp.asarray(cur), jnp.asarray(active),
+                             jnp.asarray(tier_arr), demand)
+        tl, tcache = tm.decode(tparams, tcache, {
+            "tokens": torch.from_numpy(cur), "active": torch.from_numpy(active),
+            "tiers": torch.from_numpy(tier_arr), "demand": demand})
+        assert tl.shape == (b, 1, CFG["vocab"]) and tl.dtype == torch.float32
+        np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **TOL)
+        _assert_cache_close(jcache, tcache)
+        cur = np.asarray(jnp.argmax(jl[:, -1], axis=-1)).astype(np.int32)[:, None]
+
+
+def test_windowed_config_raises():
+    cfg = TArch(**{**CFG, "name": "swa"}, window=8, dtype=torch.float32)
+    m = TModel(cfg)
+    params = tinit(m.param_descs(), device="cpu")
+    cache = tinit(m.cache_descs(1, 16), device="cpu")
+    with pytest.raises(NotImplementedError, match="sliding-window"):
+        m.prefill(params, cache, torch.zeros((1, 4), dtype=torch.int32))
+
+
+@pytest.mark.parametrize("family", ["moe", "ssm", "vlm"])
+def test_other_families_name_their_roadmap_item(family):
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
+        TModel(TArch(**{**CFG, "family": family}, dtype=torch.float32))
