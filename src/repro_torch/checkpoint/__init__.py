@@ -1,0 +1,9 @@
+"""Checkpoints of the port, in the JAX package's npz format."""
+from repro_torch.checkpoint.manager import (
+    CheckpointConfig,
+    CheckpointManager,
+    load_pytree,
+    save_pytree,
+)
+
+__all__ = ["CheckpointConfig", "CheckpointManager", "save_pytree", "load_pytree"]

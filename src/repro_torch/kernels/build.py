@@ -1,4 +1,4 @@
-"""Build the packed-matmul CUDA kernels and load them with ctypes.
+"""Build the QSQ CUDA kernels and load them with ctypes.
 
 ``load()`` compiles ``csrc/*.cu`` for ``sm_90a`` at first use into
 ``build/kernels/libqsq-<hash>.so`` under the repository root (one ``nvcc``
@@ -19,7 +19,7 @@ import tempfile
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("qsq_matvec.cu", "qsq_matmul.cu")
+SOURCES = ("qsq_matvec.cu", "qsq_matmul.cu", "qsq_quantize.cu")
 HEADERS = ("qsq_common.cuh",)
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -32,6 +32,7 @@ SIGNATURES = {
     "qsq_matmul": [_P, _P, _P, _P] + [_I] * 8 + [_P],
     "qsq_matvec_masked": [_P, _P, _P, _P, _P] + [_I] * 8 + [_P],
     "qsq_matmul_masked": [_P, _P, _P, _P, _P] + [_I] * 8 + [_P],
+    "qsq_quantize": [_P, _P, _P] + [_I] * 5 + [_P],
 }
 
 _lib: ctypes.CDLL | None = None

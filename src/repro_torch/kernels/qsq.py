@@ -1,16 +1,18 @@
-"""Wrappers of the four packed-matmul kernels.
+"""Wrappers of the five QSQ kernels: four packed matmuls and the encoder.
 
-Each wrapper checks device, dtype, shape and contiguity, allocates the
-(M, N) f32 output with ``torch.empty``, launches its CUDA kernel
-(``csrc/qsq_matvec.cu``, ``csrc/qsq_matmul.cu``) on the current stream and
-adds one to :data:`launches` under its name.  A CUDA tensor either runs
-the kernel or raises; the plain PyTorch version in ``kernels/ref.py`` runs
-only when the tensors lie on the CPU.
+Each wrapper checks device, dtype, shape and contiguity, allocates its
+outputs with ``torch.empty``, launches its CUDA kernel
+(``csrc/qsq_matvec.cu``, ``csrc/qsq_matmul.cu``, ``csrc/qsq_quantize.cu``)
+on the current stream and adds one to :data:`launches` under its name.  A
+CUDA tensor either runs the kernel or raises; the plain PyTorch version in
+``kernels/ref.py`` runs only when the tensors lie on the CPU.
 
 Operands (all kernels): x (M, K) float32 or bfloat16; planes int32,
 interleaved (K//32, 3, N) or plane-major (3, K//32, N); scales (K//G, N)
 float32; the masked kernels also take ``plane_mask`` (M,) int32, one
-3-bit code mask per row from ``ref.MASK_VARIANTS``.
+3-bit code mask per row from ``ref.MASK_VARIANTS``.  The encoder
+(:func:`qsq_quantize`, K5) takes w (K, N) float32 or bfloat16 and returns
+Table II codes (K, N) uint8 and scales (K//G, N) float32.
 """
 from __future__ import annotations
 
@@ -18,6 +20,7 @@ import collections
 
 import torch
 
+from repro_torch.core import codec
 from repro_torch.kernels import ref
 
 GEMV_M_MAX = 16  # the GEMV kernels keep all of M in registers
@@ -160,3 +163,43 @@ def qsq_matmul_masked(x, plane_mask, planes, scales, *, group_size: int,
     _check_cuda(x, planes, scales, plane_mask)
     return _launch("qsq_matmul_masked", x, planes, scales, plane_mask, group_size,
                    sign_mag, plane_major, demand_drop)
+
+
+def qsq_quantize(w: torch.Tensor, *, group_size: int, phi: int = 4
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
+    """K5: encode w (K, N), grouped along K, -> (Table II codes (K, N)
+    uint8, scales (K//G, N) f32): Eq. 9 alpha per group, then the nearest
+    level in {0, +-1, +-2, +-4} capped by phi."""
+    if w.dim() != 2 or 0 in w.shape:
+        raise ValueError(f"w must be a non-empty (K, N) matrix, got {tuple(w.shape)}")
+    k, n = w.shape
+    if group_size < 1 or k % group_size:
+        raise ValueError(f"group_size={group_size} does not divide K={k}")
+    if phi not in (1, 2, 4):
+        raise ValueError(f"phi must be one of 1, 2, 4; got {phi}")
+    if _on_cpu(w):
+        return ref.qsq_quantize_ref(w, group_size, phi)
+    if w.dtype not in _X_DTYPES:
+        raise TypeError(f"w must be float32 or bfloat16, got {w.dtype}")
+    if not w.is_contiguous():
+        raise ValueError("qsq_quantize takes a contiguous w")
+    from repro_torch.kernels import build  # deferred: builds on first launch
+
+    codes = torch.empty((k, n), dtype=torch.uint8, device=w.device)
+    scales = torch.empty((k // group_size, n), dtype=torch.float32, device=w.device)
+    rc = build.load().qsq_quantize(w.data_ptr(), codes.data_ptr(), scales.data_ptr(),
+                                   k, n, group_size, phi, int(w.dtype == torch.bfloat16),
+                                   torch.cuda.current_stream(w.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"qsq_quantize launch failed (K={k}, N={n}, G={group_size}, "
+                           f"phi={phi}): CUDA error {rc}")
+    launches["qsq_quantize"] += 1
+    return codes, scales
+
+
+def pack_weight(w: torch.Tensor, *, group_size: int, phi: int = 4
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Dense weight (K, N) -> (interleaved Table II bit-planes (K//32, 3, N)
+    int32, scales (K//G, N) f32), the operands :func:`qsq_matmul` takes."""
+    codes, scales = qsq_quantize(w, group_size=group_size, phi=phi)
+    return codec.pack_bitplane(codes), scales

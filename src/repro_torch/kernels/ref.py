@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the packed-matmul kernels.
+"""Plain PyTorch versions of the QSQ kernels.
 
 The port of ``repro/kernels/ref.py``: the simplest possible tensor code, no
 tiling.  The kernel wrappers (``kernels/qsq.py``) run these for tensors that
@@ -13,6 +13,10 @@ MSB-first, where a demand-dropped trailing plane is never read.
 Precision contract (as the JAX reference's ``w.astype(x.dtype)`` before
 the dot): the weight is the f32 product ``level * alpha``, rounded to x's
 dtype, and the product with x is accumulated in f32.
+
+The encoder's plain version, :func:`qsq_quantize_ref`, sums each group's
+|w| in plain K order, as the CUDA kernel does, so the two agree bit for
+bit on a card.
 """
 from __future__ import annotations
 
@@ -21,15 +25,21 @@ import collections
 import torch
 
 from repro_torch.core import codec
-from repro_torch.core.qsq import codes_to_levels, smcodes_to_levels
+from repro_torch.core.qsq import (
+    QSQConfig,
+    _nearest_levels,
+    codes_to_levels,
+    levels_to_codes,
+    smcodes_to_levels,
+)
 
 # The three plane masks a quality tier can put on a row: keep all 3 code
 # planes, drop the LSB plane, drop the two LSB planes (drop = 0, 1, 2).
 # Demand-driven dispatch restricts a call to ``MASK_VARIANTS[demand_drop:]``.
 MASK_VARIANTS = (0b111, 0b110, 0b100)
 
-# Calls of the two plain matmuls, by name: the main path on a card must
-# leave these at 0 (chip_smoke.py checks it).
+# Calls of the plain matmuls and the plain encoder, by name: the main
+# paths on a card must leave these at 0 (chip_smoke.py checks it).
 calls: collections.Counter = collections.Counter()
 
 
@@ -114,3 +124,26 @@ def qsq_matmul_plane_mask_ref(x, plane_mask, planes, scales, group_size: int, *,
     return qsq_matmul_masked_ref(variant_split(x, plane_mask, demand_drop), planes,
                                  scales, group_size, sign_mag=sign_mag,
                                  plane_major=plane_major, demand_drop=demand_drop)
+
+
+def qsq_quantize_ref(w: torch.Tensor, group_size: int, phi: int
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Nearest-level QSQ encode of w (K, N) f32/bf16, grouped along K ->
+    (Table II codes (K, N) uint8, scales (K//G, N) f32).
+
+    The JAX package's ``quantize(w, QSQConfig(phi, G, assign="nearest"))``;
+    |w| is summed over each group as a loop of tensor adds in K order (not
+    ``.sum()``) and every quotient is a tensor-by-tensor division (a
+    division by a Python scalar may run as a multiply by its reciprocal on
+    the card), which is the CUDA kernel's arithmetic exactly.
+    """
+    calls["qsq_quantize_ref"] += 1
+    k, n = w.shape
+    wg = w.to(torch.float32).reshape(k // group_size, group_size, n)
+    acc = torch.abs(wg[:, 0])
+    for i in range(1, group_size):
+        acc = acc + torch.abs(wg[:, i])
+    alpha = acc / torch.full((), float(phi * group_size), device=w.device)
+    safe = torch.where(alpha == 0, torch.ones_like(alpha), alpha)
+    levels = _nearest_levels(wg, safe[:, None], QSQConfig(phi=phi).max_level)
+    return levels_to_codes(levels.reshape(k, n)), alpha

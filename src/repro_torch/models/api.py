@@ -34,6 +34,14 @@ class Model:
     def param_descs(self):
         return transformer.lm_descs(self.cfg)
 
+    def loss(self, params, batch):
+        """Scalar next-token loss; batch = {tokens (B, S), labels (B, S)}."""
+        return transformer.lm_loss(params, self.cfg, batch)
+
+    def forward(self, params, batch):
+        """Logits (B, S, vocab) f32 for batch = {tokens (B, S)}."""
+        return transformer.lm_forward(params, self.cfg, batch["tokens"])
+
     def cache_descs(self, batch: int, cache_len: int):
         return transformer.lm_cache_descs(self.cfg, batch, cache_len)
 

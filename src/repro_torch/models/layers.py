@@ -7,9 +7,13 @@ through :func:`matvec` to the CUDA kernels; ``wo``, the attention scores
 and the embedding gather stay plain tensor products, as the JAX package
 leaves them to XLA.
 
+The training forward (:func:`attention`, :func:`next_token_loss`) is
+plain tensor code that autograd differentiates; the JAX package has no
+backward kernels either.
+
 Not ported yet: the sliding-window ring buffer and ``verify_attention``
-(ROADMAP Queue 1, item 0), cross attention and MoE (items 8 and 10).  A windowed config raises
-rather than being served wrong.
+(ROADMAP Queue 1, item 0), cross attention and MoE (items 8 and 10).  A
+windowed config raises rather than being served or trained wrong.
 """
 from __future__ import annotations
 
@@ -118,9 +122,10 @@ def _gqa_scores_apply(q, k, v, mask):
     return out.reshape(b, s, h, hd)
 
 
-def causal_mask(s: int, t: int, device="cpu") -> torch.Tensor:
-    """(s, t) boolean mask; query i sees key j <= i."""
-    qi = torch.arange(s, device=device)[:, None]
+def causal_mask(s: int, t: int, offset: int = 0, device="cpu") -> torch.Tensor:
+    """(s, t) boolean mask; query i (global position offset + i) sees key
+    j <= offset + i."""
+    qi = offset + torch.arange(s, device=device)[:, None]
     kj = torch.arange(t, device=device)[None, :]
     return kj <= qi
 
@@ -155,6 +160,29 @@ def _no_window(window):
         raise NotImplementedError(
             "sliding-window attention (the SWA ring buffer) is not ported yet: "
             "ROADMAP Queue 1, item 0")
+
+
+def attention(p: dict, x: torch.Tensor, *, positions: torch.Tensor | None = None,
+              theta: float = 10000.0, window: int | None = None,
+              q_chunk: int = 2048) -> torch.Tensor:
+    """Full-sequence (training) causal GQA attention over x (B, S, d).
+    Sequences longer than ``q_chunk`` run in q-chunks, so the score matrix
+    never exceeds (chunk x S)."""
+    _no_window(window)
+    s = x.shape[1]
+    q, k, v = _project_qkv(p, x, positions, theta)
+    if s <= q_chunk:
+        out = _gqa_scores_apply(q, k, v, causal_mask(s, s, device=x.device)[None, None, None])
+    else:
+        if s % q_chunk:
+            raise ValueError(f"sequence length {s} is not a multiple of q_chunk={q_chunk}")
+        outs = []
+        for i in range(s // q_chunk):
+            m = causal_mask(q_chunk, s, offset=i * q_chunk, device=x.device)
+            outs.append(_gqa_scores_apply(q[:, i * q_chunk:(i + 1) * q_chunk], k, v,
+                                          m[None, None, None]))
+        out = torch.cat(outs, dim=1)
+    return _out_proj(p, out, x)
 
 
 def decode_attention(p: dict, x: torch.Tensor, cache: KVCache, *, theta: float = 10000.0,
@@ -247,3 +275,13 @@ def embed(p: dict, tokens: torch.Tensor, dtype) -> torch.Tensor:
 def lm_head(p: dict, x: torch.Tensor, tiers=None, demand=None) -> torch.Tensor:
     """Logits in f32 (greedy argmax reads them as the JAX package does)."""
     return matvec(p["head"], x, tiers, demand).to(torch.float32)
+
+
+def next_token_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean cross-entropy of logits (B, S, V) against labels (B, S);
+    labels < 0 are masked out."""
+    lse = torch.logsumexp(logits, dim=-1)
+    valid = labels >= 0
+    picked = torch.gather(logits, -1, torch.where(valid, labels, 0).to(torch.int64)[..., None])
+    mask = valid.to(torch.float32)
+    return -torch.sum((picked[..., 0] - lse) * mask) / torch.clamp(torch.sum(mask), min=1.0)

@@ -3,13 +3,17 @@
 Layer parameters stay stacked along a leading L axis, as in the JAX
 package; a Python loop over layers takes the place of its ``lax.scan``.
 Public functions keep the JAX layouts: ``(B, S, vocab)`` f32 logits and a
-cache whose ``kv`` leaves carry (L, B, ...) axes.
+cache whose ``kv`` leaves carry (L, B, ...) axes.  The training forward
+(:func:`lm_forward`, :func:`lm_loss`) runs on dense weights; ``cfg.remat``
+recomputes each block in the backward pass (``torch.utils.checkpoint``),
+which changes no number.
 """
 from __future__ import annotations
 
 from typing import Any, NamedTuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import layers as L
@@ -47,6 +51,39 @@ def layer_params(blocks: dict, i: int) -> dict:
         return a[i]
 
     return tree_map(_take, blocks, is_leaf=is_store)
+
+
+def _block_fwd(cfg: ArchConfig, p: dict, x: torch.Tensor,
+               positions: torch.Tensor) -> torch.Tensor:
+    h = L.attention(p["attn"], L.rmsnorm(x, p["ln1"]), positions=positions,
+                    theta=cfg.rope_theta, window=cfg.window)
+    x = x + h
+    return x + L.mlp(p["mlp"], L.rmsnorm(x, p["ln2"]))
+
+
+def lm_forward(params: dict, cfg: ArchConfig, tokens: torch.Tensor) -> torch.Tensor:
+    """Training / prefill forward: tokens (B, S) -> logits (B, S, vocab) f32.
+    (The JAX package also returns a MoE aux loss, always 0 for dense.)"""
+    b, s = tokens.shape
+    x = L.embed(params["embed"], tokens, cfg.dtype)
+    positions = torch.arange(s, dtype=torch.int32, device=tokens.device).expand(b, s)
+    # one unbind per stacked leaf: its backward stacks the L layer gradients
+    # in one op, where L indexing selects would each add a full-size zero-
+    # filled gradient (L^2 work); the values are the same either way
+    stacks = tree_map(lambda a: a.unbind(0), params["blocks"])
+    for i in range(cfg.n_layers):
+        bp = tree_map(lambda t: t[i], stacks, is_leaf=lambda t: isinstance(t, tuple))
+        if cfg.remat and torch.is_grad_enabled():
+            x = checkpoint(_block_fwd, cfg, bp, x, positions, use_reentrant=False)
+        else:
+            x = _block_fwd(cfg, bp, x, positions)
+    x = L.rmsnorm(x, params["final_norm"])
+    return L.lm_head(params["embed"], x)
+
+
+def lm_loss(params: dict, cfg: ArchConfig, batch: dict) -> torch.Tensor:
+    """Next-token cross-entropy; batch = {tokens (B, S), labels (B, S)}."""
+    return L.next_token_loss(lm_forward(params, cfg, batch["tokens"]), batch["labels"])
 
 
 class LMCache(NamedTuple):

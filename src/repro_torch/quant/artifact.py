@@ -118,17 +118,23 @@ def flatten_keystr(tree) -> dict:
     return {keystr(p): np.asarray(leaf) for p, leaf in tree_leaves_with_path(tree)}
 
 
-def save_wire_npz(wire, path: str | Path, meta: dict | None = None) -> Path:
-    """Atomically write a wire tree (plus optional JSON meta) as npz."""
-    flat = flatten_keystr(wire)
-    if meta is not None:
-        flat[META_KEY] = np.array(json.dumps(meta))
+def atomic_savez(flat: dict, path: str | Path) -> Path:
+    """Write an npz via tmp-file + rename, so a crashed writer never
+    corrupts an existing file (artifacts and checkpoints alike)."""
     path = Path(path)
     path.parent.mkdir(parents=True, exist_ok=True)
     tmp = path.with_suffix(".tmp.npz")
     np.savez(tmp, **flat)
     tmp.rename(path)
     return path
+
+
+def save_wire_npz(wire, path: str | Path, meta: dict | None = None) -> Path:
+    """Atomically write a wire tree (plus optional JSON meta) as npz."""
+    flat = flatten_keystr(wire)
+    if meta is not None:
+        flat[META_KEY] = np.array(json.dumps(meta))
+    return atomic_savez(flat, path)
 
 
 def load_wire_npz(path: str | Path) -> tuple[Any, dict | None]:

@@ -1,9 +1,10 @@
-"""Serving step builders (the port of ``repro/train/step.py``).
+"""Training and serving step builders (the port of ``repro/train/step.py``).
 
 PyTorch runs eagerly, so the builders return plain functions; ``demand``
 stays a Python int (at most one kernel specialisation per tier) and
-``tiers``/``active`` stay tensors (a tier change is a data change).
-The training step is not ported yet (ROADMAP Queue 1, item 11).
+``tiers``/``active`` stay tensors (a tier change is a data change).  The
+train step differentiates the loss with autograd over plain tensor ops,
+QSQ-compresses the gradients (the K5 kernel on a card) and applies AdamW.
 """
 from __future__ import annotations
 
@@ -12,6 +13,58 @@ from typing import Callable
 import torch
 
 from repro_torch.models import transformer
+from repro_torch.optim import (
+    AdamWConfig,
+    GradCompressionConfig,
+    adamw_update,
+    compress_grads,
+    cosine_schedule,
+)
+from repro_torch.train.state import TrainState
+from repro_torch.tree import tree_map
+
+
+def make_train_step(model, opt_cfg: AdamWConfig | None = None,
+                    cc: GradCompressionConfig | None = None,
+                    total_steps: int = 100000) -> Callable:
+    """(TrainState, batch) -> (TrainState, metrics).  The input state is
+    left untouched; metrics ``loss``, ``grad_norm`` and ``lr_scale`` are
+    0-d tensors on the state's device, ``grad_wire_bytes`` a float."""
+    opt_cfg = opt_cfg or AdamWConfig()
+    cc = cc or GradCompressionConfig()
+
+    def train_step(state: TrainState, batch: dict):
+        params = tree_map(lambda p: p.detach().requires_grad_(True), state.params)
+        with torch.enable_grad():
+            loss = model.loss(params, batch)
+            loss.backward()
+        grads = tree_map(lambda p: p.grad, params)
+        with torch.no_grad():
+            grads, new_err, wire_bytes = compress_grads(grads, state.err, cc)
+            lr_scale = cosine_schedule(state.opt.step, warmup=max(total_steps // 20, 1),
+                                       total=total_steps)
+            new_params, new_opt, gnorm = adamw_update(opt_cfg, params, grads, state.opt,
+                                                      lr_scale)
+        metrics = {"loss": loss.detach(), "grad_norm": gnorm, "lr_scale": lr_scale,
+                   "grad_wire_bytes": wire_bytes}
+        return TrainState(params=new_params, opt=new_opt, err=new_err), metrics
+
+    return train_step
+
+
+def make_prefill_step(model) -> Callable:
+    """(params, batch) -> logits: inference prefill."""
+    return lambda params, batch: model.forward(params, batch)
+
+
+def make_serve_step(model) -> Callable:
+    """(params, cache, batch) -> (next_tokens (B, 1), cache): one greedy decode step."""
+
+    def serve_step(params, cache, batch):
+        logits, cache = model.decode(params, cache, batch)
+        return torch.argmax(logits[:, -1, :], dim=-1).to(torch.int32)[:, None], cache
+
+    return serve_step
 
 
 def make_cache_prefill_step(model) -> Callable:

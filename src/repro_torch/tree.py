@@ -15,13 +15,19 @@ def _is_namedtuple(x) -> bool:
     return isinstance(x, tuple) and hasattr(x, "_fields")
 
 
+class FieldKey(str):
+    """A NamedTuple field in a key path: equal to its name as a ``str``
+    (so paths still index dicts and join with '/'), but :func:`keystr`
+    writes it ``.name`` as ``jax.tree_util.keystr`` writes a GetAttrKey."""
+
+
 def _children(node):
     """(keys, children, rebuild) for a container node, else None."""
     if isinstance(node, dict):
         keys = sorted(node)
         return keys, [node[k] for k in keys], lambda vals: dict(zip(keys, vals))
     if _is_namedtuple(node):
-        keys = list(node._fields)
+        keys = [FieldKey(f) for f in node._fields]
         return keys, list(node), lambda vals: type(node)(*vals)
     if isinstance(node, (list, tuple)):
         keys = list(range(len(node)))
@@ -80,7 +86,14 @@ def path_str(path) -> str:
     return "/".join(str(k) for k in path)
 
 
+def _key(k) -> str:
+    if isinstance(k, FieldKey):
+        return f".{k}"
+    return f"[{k!r}]" if isinstance(k, str) else f"[{k}]"
+
+
 def keystr(path) -> str:
-    """Key tuple -> "['a']['b'][0]", ``jax.tree_util.keystr``'s form (the
-    npz keys both packages write)."""
-    return "".join(f"[{k!r}]" if isinstance(k, str) else f"[{k}]" for k in path)
+    """Key tuple -> ".opt.m['a'][0]", ``jax.tree_util.keystr``'s form (the
+    npz keys both packages write): NamedTuple fields as ``.field``, dict
+    keys as ``['key']``, sequence indices as ``[i]``."""
+    return "".join(_key(k) for k in path)

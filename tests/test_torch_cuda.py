@@ -11,7 +11,10 @@ Checks, at smollm-135m's packed shapes: elementwise agreement within the
 a-priori bound of two f32 summation orders, 2*K*2^-24*(|x|@|w|); masked
 rows bit-identical to the unmasked kernel on truncated planes;
 demand-routed output bit-identical to the full masked one; and the
-launch counter moving once per launch.
+launch counter moving once per launch.  The encoder (K5,
+``qsq_quantize``) must equal its plain version bit for bit, codes and
+scales, at every G the gradient compressor can pick, a ragged N, f32 and
+bf16 input, and over a 30-layer stack grouped with G = 2.
 """
 import pytest
 
@@ -27,9 +30,10 @@ G = 16
 @pytest.fixture(scope="module", autouse=True)
 def _port():
     """Import the port for this file only (see ``torch_port_scope``)."""
-    global qsq, ref, MASK_VARIANTS
+    global qsq, ref, MASK_VARIANTS, codec, pack_weight
     with port_modules():
-        from repro_torch.kernels import qsq, ref
+        from repro_torch.core import codec
+        from repro_torch.kernels import pack_weight, qsq, ref
         from repro_torch.kernels.ref import MASK_VARIANTS
         yield
 
@@ -136,3 +140,52 @@ def test_wrapper_raises_on_unsupported_operands(cuda):
         qsq.qsq_matmul(x.half(), planes, scales, group_size=G, plane_major=True)
     with pytest.raises(ValueError, match="different devices"):
         qsq.qsq_matmul(x.cpu(), planes, scales, group_size=G, plane_major=True)
+
+
+def _quantize_pair(w, g, phi):
+    before = qsq.launches["qsq_quantize"]
+    codes, scales = qsq.qsq_quantize(w, group_size=g, phi=phi)
+    torch.cuda.synchronize()
+    assert qsq.launches["qsq_quantize"] == before + 1
+    want_codes, want_scales = ref.qsq_quantize_ref(w, g, phi)
+    assert codes.dtype == torch.uint8 and scales.dtype == torch.float32
+    assert torch.equal(codes, want_codes)
+    assert torch.equal(scales, want_scales)
+
+
+def test_quantize_bit_identical_to_plain(cuda):
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    for k, n in [(576, 1536), (256, 1000)]:  # N = 1000: a ragged last block
+        w = torch.randn((k, n), generator=gen, device="cuda") * 1e-3
+        w[:64, :5] = 0.0  # all-zero groups
+        for g in (1, 2, 16, 32, 64, 24):  # 24: the runtime-G path
+            if k % g:
+                continue
+            for phi in (1, 2, 4):
+                for dtype in (torch.float32, torch.bfloat16):
+                    _quantize_pair(w.to(dtype), g, phi)
+
+
+def test_quantize_layer_stack_g2(cuda):
+    """smollm-135m's mlp leaves: a (30, 884736) stack grouped along L."""
+    w = torch.randn((30, 884736), generator=torch.Generator(device="cuda").manual_seed(2),
+                    device="cuda")
+    _quantize_pair(w, 2, 4)
+    with pytest.raises(ValueError, match="does not divide"):
+        qsq.qsq_quantize(w, group_size=4)
+    with pytest.raises(ValueError, match="contiguous"):
+        qsq.qsq_quantize(w.t(), group_size=2)
+
+
+def test_pack_weight_then_matmul_matches_plain_chain(cuda):
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    w = torch.randn((576, 1536), generator=gen, device="cuda")
+    x = torch.randn((64, 576), generator=gen, device="cuda")
+    planes, scales = pack_weight(w, group_size=G)
+    codes, want_scales = ref.qsq_quantize_ref(w, G, 4)
+    assert torch.equal(planes, codec.pack_bitplane(codes)) and torch.equal(scales, want_scales)
+    got = qsq.qsq_matmul(x, planes, scales, group_size=G)
+    want = ref.qsq_matmul_ref(x, planes, scales, G)
+    wd = ref.qsq_dequant_ref(planes, scales, G)
+    bound = 2 * x.shape[1] * 2.0**-24 * (x.abs().double() @ wd.abs().double())
+    assert bool(((got.double() - want.double()).abs() <= bound).all())

@@ -5,7 +5,9 @@
 * ``import repro_torch.api`` succeeds in a fresh interpreter where
   ``import jax`` is made to fail.
 * An entry point called without ``device`` on a machine without CUDA
-  raises instead of running on the CPU.
+  raises instead of running on the CPU (``compress``, the engine, the
+  ``Trainer`` and the training launcher); a kernel wrapper runs its plain
+  version only for CPU tensors and refuses any other device.
 """
 import ast
 import subprocess
@@ -49,7 +51,9 @@ def _imported_roots(path: Path) -> set[str]:
 
 def test_port_file_list_is_complete():
     names = {p.name for p in PORT_FILES}
-    assert {"api.py", "engine.py", "store.py", "qsq.py", "chip_smoke.py"} <= names
+    assert {"api.py", "engine.py", "store.py", "qsq.py", "chip_smoke.py", "trainer.py",
+            "manager.py", "pipeline.py", "compression.py", "adamw.py"} <= names
+    assert ROOT / "src" / "repro_torch" / "launch" / "train.py" in PORT_FILES
     assert len(PORT_FILES) > 20
 
 
@@ -65,6 +69,7 @@ def test_port_imports_with_jax_blocked():
         "sys.modules['jax'] = None\n"
         "sys.modules['repro'] = None\n"
         "import repro_torch.api, repro_torch.serve.engine, repro_torch.kernels.build\n"
+        "import repro_torch.train.trainer, repro_torch.launch.train, repro_torch.kernels\n"
         "assert not [m for m in sys.modules if sys.modules[m] is not None\n"
         "            and (m in ('jax', 'repro') or m.startswith(('jax.', 'repro.')))]\n"
         "print('ok')\n"
@@ -92,6 +97,13 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
     art = api.compress(model, params, device="cpu")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         art.engine(quality="hi", batch_slots=1)
+    from repro_torch.launch import train as launch_train
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Trainer(model, TrainerConfig(total_steps=1), lambda step: {})
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        launch_train.main(["--steps", "1"])
 
 
 def test_kernel_wrapper_refuses_other_devices():
@@ -102,3 +114,5 @@ def test_kernel_wrapper_refuses_other_devices():
     scales = torch.zeros((2, 8), device="meta")
     with pytest.raises(ValueError, match="CUDA or CPU"):
         qsq.qsq_matvec(x, planes, scales, group_size=16, plane_major=True)
+    with pytest.raises(ValueError, match="CUDA or CPU"):
+        qsq.qsq_quantize(torch.zeros((4, 8), device="meta"), group_size=2)
