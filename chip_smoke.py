@@ -10,12 +10,15 @@ Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``
 2. each kernel against its plain PyTorch version at smollm-135m's packed
    shapes — elementwise within 2*K*2^-24*(|x|@|w|), masked rows
    bit-identical to the unmasked kernel on truncated planes, demand-routed
-   bit-identical to full masked — and timed with CUDA events;
+   bit-identical to full masked — and timed with CUDA events, the masked
+   kernels also at demand_drop = 2 against that case's own bound;
 3. the main path at full width: ``api.compress`` of smollm-135m (random
    weights from a seeded ``torch.Generator``), ``save``,
    ``api.load(verify=True)``, ``artifact.engine(quality="mid",
    batch_slots=8)`` serving 12 mixed-tier requests with staggered
-   arrivals; every kernel must launch and no plain version may run;
+   arrivals; every kernel must launch and no plain version may run; then
+   profiles of 4 decode steps and of one admission (device time by
+   kernel, each packed kernel's share and launches);
 4. the card against the CPU at the 2-layer d64 test config: identical
    greedy tokens, logits within 1e-4;
 5. the encoder K5 (``qsq_quantize``) against its plain version at the
@@ -214,57 +217,76 @@ def check_kernels(torch, gen):
 
 def time_kernels(torch, gen, flush):
     """Per kernel, summed over the five smollm shapes (bf16 x, all planes):
-    kernel, plain-version and library times and the bound."""
-    from repro_torch.kernels import qsq, ref
-
+    kernel, plain-version and library times and the bound; the masked
+    kernels also at demand_drop = 2 (one plane read, one variant decoded)."""
     rows = {}
     for name, (masked, m, source, replaces) in KERNELS.items():
-        tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bytes_s=0.0, ops_s=0.0, bound=0.0)
-        for k, n in SHAPES:
-            x, planes, scales, mask = operands(torch, m, k, n, gen, torch.bfloat16)
-            kw = dict(group_size=GROUP, sign_mag=True, plane_major=True)
-            fn = getattr(qsq, name)
-            if masked:
-                def kern():
-                    return fn(x, mask, planes, scales, **kw)
-
-                def plain():
-                    return ref.qsq_matmul_plane_mask_ref(x, mask, planes, scales, **kw)
+        for demand in (0, 2) if masked else (0,):
+            tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bytes_s=0.0, ops_s=0.0,
+                       bound=0.0)
+            for k, n in SHAPES:
+                b_s, o_s, ms, plain_ms, lib_ms = time_one(torch, gen, flush, name, masked, m,
+                                                          k, n, demand)
+                tag = f" d={demand}" if masked else ""
+                say(f"  {name:18s}{tag} K={k:5d} N={n:5d} M={m:2d}: kernel {ms * 1e3:8.2f} us  "
+                    f"plain {plain_ms * 1e3:8.2f} us  torch.matmul {lib_ms * 1e3:8.2f} us  "
+                    f"bound {max(b_s, o_s) * 1e6:6.2f} us ({'bytes' if b_s >= o_s else 'ops'})")
+                tot["ms"] += ms
+                tot["plain_ms"] += plain_ms
+                tot["library_ms"] += lib_ms
+                tot["bytes_s"] += b_s
+                tot["ops_s"] += o_s
+                tot["bound"] += max(b_s, o_s)
+            row = dict(
+                name=name, route="cuda", source=source, replaces=replaces,
+                ms=tot["ms"], plain_ms=tot["plain_ms"], bound_ms=tot["bound"] * 1e3,
+                bound_by="bytes" if tot["bytes_s"] >= tot["ops_s"] else "operations",
+                library_ms=tot["library_ms"])
+            if demand:
+                say(f"  {name} at demand_drop={demand}, summed: kernel {row['ms']:.4f} ms, "
+                    f"torch.matmul {row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms")
             else:
-                def kern():
-                    return fn(x, planes, scales, **kw)
-
-                def plain():
-                    return ref.qsq_matmul_ref(x, planes, scales, GROUP, sign_mag=True,
-                                              plane_major=True)
-            w = ref.qsq_dequant_ref(planes, scales, GROUP, sign_mag=True,
-                                    plane_major=True).to(torch.bfloat16)
-
-            def library():
-                return torch.matmul(x, w)
-
-            ms = time_ms(torch, kern, flush)
-            plain_ms = time_ms(torch, plain, flush)
-            lib_ms = time_ms(torch, library, flush)
-            nbytes = (m * k * 2 + 3 * (k // 32) * n * 4 + (k // GROUP) * n * 4 + m * n * 4
-                      + (m * 4 if masked else 0))
-            ops = 2 * m * k * n
-            b_s, o_s = nbytes / HBM_BYTES_PER_S, ops / PEAK_OPS["bfloat16"]
-            say(f"  {name:18s} K={k:5d} N={n:5d} M={m:2d}: kernel {ms * 1e3:8.2f} us  "
-                f"plain {plain_ms * 1e3:8.2f} us  torch.matmul {lib_ms * 1e3:8.2f} us  "
-                f"bound {max(b_s, o_s) * 1e6:6.2f} us ({'bytes' if b_s >= o_s else 'ops'})")
-            tot["ms"] += ms
-            tot["plain_ms"] += plain_ms
-            tot["library_ms"] += lib_ms
-            tot["bytes_s"] += b_s
-            tot["ops_s"] += o_s
-            tot["bound"] += max(b_s, o_s)
-        rows[name] = dict(
-            name=name, route="cuda", source=source, replaces=replaces,
-            ms=tot["ms"], plain_ms=tot["plain_ms"], bound_ms=tot["bound"] * 1e3,
-            bound_by="bytes" if tot["bytes_s"] >= tot["ops_s"] else "operations",
-            library_ms=tot["library_ms"])
+                rows[name] = row
+    for name, row in rows.items():
+        say(f"  {name} summed: kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
+            f"torch.matmul {row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms")
     return rows
+
+
+def time_one(torch, gen, flush, name, masked, m, k, n, demand):
+    """One shape: (bytes bound s, ops bound s, kernel ms, plain ms, torch.matmul ms).
+    The bound counts the 3 - demand planes the call must read."""
+    from repro_torch.kernels import qsq, ref
+
+    x, planes, scales, mask = operands(torch, m, k, n, gen, torch.bfloat16, demand)
+    kw = dict(group_size=GROUP, sign_mag=True, plane_major=True, demand_drop=demand)
+    fn = getattr(qsq, name)
+    if masked:
+        def kern():
+            return fn(x, mask, planes, scales, **kw)
+
+        def plain():
+            return ref.qsq_matmul_plane_mask_ref(x, mask, planes, scales, **kw)
+    else:
+        def kern():
+            return fn(x, planes, scales, **kw)
+
+        def plain():
+            return ref.qsq_matmul_ref(x, planes, scales, GROUP, sign_mag=True,
+                                      plane_major=True)
+    w = ref.qsq_dequant_ref(planes, scales, GROUP, sign_mag=True, plane_major=True,
+                            n_planes=3 - demand).to(torch.bfloat16)
+
+    def library():
+        return torch.matmul(x, w)
+
+    ms = time_ms(torch, kern, flush)
+    plain_ms = time_ms(torch, plain, flush)
+    lib_ms = time_ms(torch, library, flush)
+    nbytes = (m * k * 2 + (3 - demand) * (k // 32) * n * 4 + (k // GROUP) * n * 4 + m * n * 4
+              + (m * 4 if masked else 0))
+    ops = 2 * m * k * n
+    return nbytes / HBM_BYTES_PER_S, ops / PEAK_OPS["bfloat16"], ms, plain_ms, lib_ms
 
 
 # --------------------------------------------------------------------------
@@ -362,13 +384,77 @@ def serve_full_width(torch, workdir: Path, cfg, device="cuda"):
         f"{4 * dispatch.traffic['plane_words_read']} B)")
     eng._admit, eng._cont_step = orig_admit, orig_step
     profile_decode(torch, eng, prompts[:8], names)
+    profile_admission(torch, eng, prompts[11], "mid")
     return launches
+
+
+def kernel_of(key: str) -> str | None:
+    """The wrapper behind a profiled kernel name, or None."""
+    if "packed_mma_kernel<" in key:  # <MT, NT, NP, MASKED, ...>: MT 1 = GEMV, 4 = GEMM
+        mt, _, _, masked = key.split("packed_mma_kernel<")[1].split(",")[:4]
+        base = "qsq_matvec" if mt.strip() == "1" else "qsq_matmul"
+        return base + ("_masked" if masked.strip() == "true" else "")
+    for part, base in (("qsq_gemv_kernel<", "qsq_matvec"), ("qsq_gemm_kernel<", "qsq_matmul")):
+        if part in key:
+            return base + ("_masked" if key.split(part)[1].split(">")[0].endswith("true")
+                           else "")
+    return None
+
+
+def device_kernels(prof):
+    from torch.autograd import DeviceType
+
+    return [(e.key, e.self_device_time_total, e.count) for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+
+
+def profile_admission(torch, eng, prompt, quality):
+    """Device time by kernel over one admission (a single-slot prefill at
+    M = 64 and its cache insert), K4's share of it and the launches."""
+    from torch.profiler import ProfilerActivity, profile
+
+    orig = eng._admit
+    box = {}
+
+    def profiled(*a):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            out = orig(*a)
+            torch.cuda.synchronize()
+            box["wall_us"] = (time.perf_counter() - t0) * 1e6
+        box["prof"] = prof
+        return out
+
+    eng._admit = profiled
+    try:
+        eng.submit(prompt, max_new=2, quality=quality)
+        eng.step()
+    finally:
+        eng._admit = orig
+    eng.run_until_drained()
+    kern = device_kernels(box["prof"])
+    busy = sum(t for _, t, _ in kern)
+    by = {}
+    for key, t, n in kern:
+        name = kernel_of(key)
+        if name:
+            by[name] = (by.get(name, (0.0, 0))[0] + t, by.get(name, (0.0, 0))[1] + n)
+    k4_us, k4_n = by.get("qsq_matmul_masked", (0.0, 0))
+    say(f"  profile of one admission ({len(prompt)}-token prompt, M=64): wall "
+        f"{box['wall_us'] / 1e3:.2f} ms, device busy {busy / 1e3:.3f} ms "
+        f"({100 * busy / box['wall_us']:.1f}% of wall), {sum(n for _, _, n in kern)} launches; "
+        f"K4 {k4_us / 1e3:.3f} ms = {100 * k4_us / max(busy, 1e-9):.1f}% of device time in "
+        f"{k4_n} launches")
+    for name, (t, n) in sorted(by.items()):
+        say(f"    {name:18s} {t / 1e3:7.3f} ms  {n:4d} launches  ({t / max(n, 1):.1f} us each)")
+    for name, t, n in sorted(kern, key=lambda r: -r[1])[:6]:
+        say(f"    {t / 1e3:7.3f} ms  {n:5d} launches  {name[:90]}")
 
 
 def profile_decode(torch, eng, prompts, names, steps=4):
     """Device time by kernel over ``steps`` full-batch decode steps (after
     the launch counts were read), and the device's busy share of the wall."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     for i, p in enumerate(prompts):
@@ -382,12 +468,20 @@ def profile_decode(torch, eng, prompts, names, steps=4):
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     eng.run_until_drained()
-    kern = [(e.key, e.self_device_time_total, e.count) for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    kern = device_kernels(prof)
     busy = sum(t for _, t, _ in kern)
     say(f"  profile of {steps} decode steps at 8 live slots: wall {wall_us / steps / 1e3:.2f} "
         f"ms/step, device busy {busy / steps / 1e3:.2f} ms/step "
-        f"({100 * busy / wall_us:.1f}% of wall)")
+        f"({100 * busy / wall_us:.1f}% of wall), "
+        f"{sum(n for _, _, n in kern) // steps} launches/step")
+    by = {}
+    for key, t, n in kern:
+        name = kernel_of(key)
+        if name:
+            by[name] = (by.get(name, (0.0, 0))[0] + t, by.get(name, (0.0, 0))[1] + n)
+    for name, (t, n) in sorted(by.items()):
+        say(f"    {name:18s} {t / steps / 1e3:7.3f} ms/step = {100 * t / max(busy, 1e-9):5.1f}% "
+            f"of device time, {n // steps:4d} launches/step ({t / max(n, 1):.1f} us each)")
     for name, t, n in sorted(kern, key=lambda r: -r[1])[:8]:
         say(f"    {t / steps / 1e3:7.3f} ms/step  {n // steps:5d} launches/step  {name[:90]}")
 

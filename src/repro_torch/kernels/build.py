@@ -20,7 +20,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("qsq_matvec.cu", "qsq_matmul.cu", "qsq_quantize.cu")
-HEADERS = ("qsq_common.cuh",)
+HEADERS = ("qsq_common.cuh", "qsq_mma.cuh")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -28,10 +28,10 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # C signatures: pointers and the stream as c_void_p, ints as c_int
 SIGNATURES = {
-    "qsq_matvec": [_P, _P, _P, _P] + [_I] * 8 + [_P],
-    "qsq_matmul": [_P, _P, _P, _P] + [_I] * 8 + [_P],
-    "qsq_matvec_masked": [_P, _P, _P, _P, _P] + [_I] * 8 + [_P],
-    "qsq_matmul_masked": [_P, _P, _P, _P, _P] + [_I] * 8 + [_P],
+    "qsq_matvec": [_P, _P, _P, _P] + [_I] * 13 + [_P],
+    "qsq_matmul": [_P, _P, _P, _P] + [_I] * 13 + [_P],
+    "qsq_matvec_masked": [_P, _P, _P, _P, _P] + [_I] * 13 + [_P],
+    "qsq_matmul_masked": [_P, _P, _P, _P, _P] + [_I] * 13 + [_P],
     "qsq_quantize": [_P, _P, _P] + [_I] * 5 + [_P],
 }
 

@@ -1,4 +1,4 @@
-// K3 qsq_matmul and K4 qsq_matmul_masked: the tiled GEMM
+// K3 qsq_matmul and K4 qsq_matmul_masked: the GEMM
 // x (M > 16, K) @ decode(planes, scales) (K, N) -> (M, N) f32, the
 // admission-prefill shape (M = max_prompt = 64).
 //
@@ -9,19 +9,34 @@
 // Bound on an H100: at M = 64 the work is 2*64*K*N operations against
 // about 5 bits/weight of packed stream (3 planes + one f32 scale per 16
 // weights) plus the bf16 x and the f32 output; with bf16 x the operations
-// would take 989 TFLOP/s on the tensor cores, so the packed bytes at
-// 3.35 TB/s still bound it (576 x 49152 head: ~5.3 us of bytes against
-// ~3.7 us of bf16 operations).
+// take 989 TFLOP/s on the tensor cores, so the packed bytes at 3.35 TB/s
+// still bound it (576 x 49152 head: ~9 us of bytes against ~3.7 us of
+// operations).  What holds the kernel back is neither: the decode of every
+// code (per demanded variant) in integer instructions, and the occupancy
+// that 100-128 registers a thread leave.
 //
-// Design (simple and right first; tensor cores, TMA and pipelining are
-// later work): a 64x64 output tile per block of 256 threads, each thread a
-// 4x4 register micro-tile.  For every 32-deep K step the block stages the
-// x tile in shared memory as f32 and decodes the 32x64 weight tile ONCE
-// (one plane word per column) into shared memory, scaled and rounded to
-// x's dtype; K4 decodes it under each demanded mask variant.  Every output
-// accumulates its FMAs in plain K order, so K4's row m is bit-identical to
-// K3 on truncate(drop_m).  Ragged M and N edges are masked in the kernel.
+// Design, for bf16 x and G a multiple of 16: the tensor-core template in
+// qsq_mma.cuh with a 64-row tile (MT = 4) through mma.sync m16n8k16 (not
+// wgmma: its shared-memory operand descriptors were left for later work).
+// Each thread decodes its B fragment in registers, x stays in shared
+// memory, plane words and scales stream through per-warp cp.async rings.
+// K splits over 4 warps and a cluster of up to 8 blocks with the K2
+// fixed-order reduction; the head runs a persistent grid.  K4 sorts the
+// tile's rows by variant (stable) and pads each variant's rows to whole
+// 16-row tiles (at most 4 + NP - 1 tiles), so each tile takes one MMA, with
+// its own variant's weights: row m is bit for bit K3 on truncate(drop_m),
+// rows of no demanded variant are zero, and demand routing changes no bit.
+//
+// f32 x (the test configs), G not a multiple of 16, and an x too large to
+// stage keep the first kernel below: 64x64 FMA tiles in plain K order.
+//
+// ptxas (sm_90a, sign-magnitude plane-major): K3 90-115 registers, K4
+// 87-128 (capped at 128 by launch bounds for two blocks an SM; a few
+// bytes of spill only in the Table II NP = 3 K4 instantiations), 208-272
+// bytes of static shared memory; dynamic shared memory per plan: 34-86 KB
+// at the smollm shapes.
 #include "qsq_common.cuh"
+#include "qsq_mma.cuh"
 
 namespace {
 
@@ -134,9 +149,24 @@ template <bool MASKED>
 int launch(const void* x, const void* planes, const void* scales,
            const void* plane_mask, void* out, int M, int K, int N, int G,
            int x_bf16, int sign_mag, int plane_major, int n_planes,
-           int demand_drop, void* stream) {
+           int demand_drop, int nt, int wn, int wk, int cs, int persist,
+           void* stream) {
   if (M < 1 || K % 32 || G < 1 || K % G) return -1;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (x_bf16 && G % 16 == 0 && nt > 0) {  // the tensor-core route (qsq_mma.cuh), 64-row tiles
+    qsq::mma::Args a = {};
+    a.x = static_cast<const __nv_bfloat16*>(x);
+    a.planes = static_cast<const int32_t*>(planes);
+    a.scales = static_cast<const float*>(scales);
+    a.plane_mask = static_cast<const int32_t*>(plane_mask);
+    a.out = static_cast<float*>(out);
+    a.M = M; a.K = K; a.N = N; a.G = G;
+    a.wn = wn; a.wk = wk; a.cs = cs; a.persist = persist;
+    a.demand_drop = demand_drop;
+    if (nt == 1) return qsq::mma::launch<4, 1, MASKED>(a, n_planes, sign_mag, plane_major, s);
+    if (nt == 2) return qsq::mma::launch<4, 2, MASKED>(a, n_planes, sign_mag, plane_major, s);
+    return -1;
+  }
   if (x_bf16)
     launch_t<__nv_bfloat16, MASKED>(x, planes, scales, plane_mask, out, M, K,
                                     N, G, sign_mag, plane_major, n_planes,
@@ -151,18 +181,20 @@ int launch(const void* x, const void* planes, const void* scales,
 
 extern "C" int qsq_matmul(const void* x, const void* planes, const void* scales,
                           void* out, int M, int K, int N, int G, int x_bf16,
-                          int sign_mag, int plane_major, int n_planes,
-                          void* stream) {
+                          int sign_mag, int plane_major, int n_planes, int nt,
+                          int wn, int wk, int cs, int persist, void* stream) {
   return launch<false>(x, planes, scales, nullptr, out, M, K, N, G, x_bf16,
-                       sign_mag, plane_major, n_planes, 0, stream);
+                       sign_mag, plane_major, n_planes, 0, nt, wn, wk, cs, persist,
+                       stream);
 }
 
 extern "C" int qsq_matmul_masked(const void* x, const void* plane_mask,
                                  const void* planes, const void* scales,
                                  void* out, int M, int K, int N, int G,
                                  int x_bf16, int sign_mag, int plane_major,
-                                 int demand_drop, void* stream) {
+                                 int demand_drop, int nt, int wn, int wk, int cs,
+                                 int persist, void* stream) {
   return launch<true>(x, planes, scales, plane_mask, out, M, K, N, G, x_bf16,
-                      sign_mag, plane_major, 3 - demand_drop, demand_drop,
-                      stream);
+                      sign_mag, plane_major, 3 - demand_drop, demand_drop, nt, wn,
+                      wk, cs, persist, stream);
 }

@@ -6,23 +6,38 @@
 //           (_qsq_matvec_masked_kernel).
 //
 // Bound on an H100 (3.35 TB/s HBM): the packed weight stream.  Per launch
-// the kernel must read n_planes * K/32 * N int32 plane words plus
-// K/G * N f32 scales (5 bits/weight at G = 16 with all 3 planes), while
-// x (M*K) and the output (M*N) are small; 2*M*K*N FMAs at M <= 16 are far
-// below the f32 rate.  smollm-135m's 181 packed launches per decode step
-// stream about 78 MB, a bound near 23 us per step.
+// the kernel must read (3 - demand_drop) * K/32 * N int32 plane words plus
+// K/G * N f32 scales; x (M*K) and the output (M*N) are small.  smollm-135m's
+// head (576 x 49152) is 17.7 MB, 5.3 us; the layer shapes are a few hundred
+// KB, far below the ~5 us a launch costs, so there the latency chain of one
+// call (launch, first DRAM touch, a few words, the cluster's reduction)
+// sets the time.
 //
-// Design (simple and right first; no split-K, no atomics): one thread per
-// output column n, so neighbouring threads read neighbouring plane-major
-// words and every load coalesces.  Each thread walks K in order, 32 codes
-// per plane word, decodes in registers, scales by its group's alpha and
-// FMAs into M register accumulators; x is staged in shared memory in
-// K-chunks as f32.  Only the demanded planes are read on plane-major input,
-// which is the demand-shortened weight read.  K2 decodes each code under
-// every demanded mask variant and lets each row pick its own: with the K
-// order of K1, row m is bit-identical to K1 on truncate(drop_m), and rows
-// whose mask matches no demanded variant FMA an exact zero.
+// Design, for bf16 x (the served dtype): the tensor-core template in
+// qsq_mma.cuh with one 16-row MMA tile (MT = 1), x as A, each thread
+// decoding its own B fragment.  The launch plan (kernels/qsq.py
+// launch_plan) splits K over 4 warps of a block and a thread-block cluster
+// of up to 8 blocks, 8 columns a warp, so every layer shape puts 96-192
+// blocks on the 132 SMs; the head runs a persistent grid, 16 columns a
+// warp over all of K.  Partial sums add in a fixed order: warps of a block
+// in warp order through shared memory, then rank 0 of the cluster adds the
+// other ranks' sums, pushed into its shared memory, in rank order.  One
+// launch, no workspace, no atomics.  K2 keeps one accumulator set per
+// demanded variant (NP = 3 - demand_drop, a template) and each row takes
+// its own; the decode of a variant clears whole plane words, so row m is
+// bit for bit K1 on truncate(drop_m) (the same split, the same MMAs), and
+// demand routing changes no bit.
+//
+// f32 x (the test configs) keeps the first kernel below: one thread per
+// output column, FMAs in plain K order, x staged in shared memory.
+//
+// ptxas (sm_90a, sign-magnitude plane-major, the served case): 64-74
+// registers at 8 columns a warp and 67-90 at 16, no spills; 192-208 bytes
+// of static shared memory; dynamic shared memory per plan (x over the
+// block's K range, 8-stage rings, cluster slots): 12-39 KB at the smollm
+// shapes.
 #include "qsq_common.cuh"
+#include "qsq_mma.cuh"
 
 namespace {
 
@@ -121,16 +136,30 @@ template <bool MASKED>
 int launch(const void* x, const void* planes, const void* scales,
            const void* plane_mask, void* out, int M, int K, int N, int G,
            int x_bf16, int sign_mag, int plane_major, int n_planes,
-           int demand_drop, void* stream) {
+           int demand_drop, int nt, int wn, int wk, int cs, int persist,
+           void* stream) {
   if (M < 1 || M > kMMax || K % 32 || G % 16 || K % G) return -1;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (x_bf16)
-    launch_t<__nv_bfloat16, MASKED>(x, planes, scales, plane_mask, out, M, K,
-                                    N, G, sign_mag, plane_major, n_planes,
-                                    demand_drop, s);
+  if (x_bf16 && nt > 0) {  // the tensor-core route (qsq_mma.cuh), one 16-row tile
+    qsq::mma::Args a = {};
+    a.x = static_cast<const __nv_bfloat16*>(x);
+    a.planes = static_cast<const int32_t*>(planes);
+    a.scales = static_cast<const float*>(scales);
+    a.plane_mask = static_cast<const int32_t*>(plane_mask);
+    a.out = static_cast<float*>(out);
+    a.M = M; a.K = K; a.N = N; a.G = G;
+    a.wn = wn; a.wk = wk; a.cs = cs; a.persist = persist;
+    a.demand_drop = demand_drop;
+    if (nt == 1) return qsq::mma::launch<1, 1, MASKED>(a, n_planes, sign_mag, plane_major, s);
+    if (nt == 2) return qsq::mma::launch<1, 2, MASKED>(a, n_planes, sign_mag, plane_major, s);
+    return -1;
+  }
+  if (x_bf16)  // a plan of the FMA route: x too large to stage in shared memory
+    launch_t<__nv_bfloat16, MASKED>(x, planes, scales, plane_mask, out, M, K, N, G,
+                                    sign_mag, plane_major, n_planes, demand_drop, s);
   else
-    launch_t<float, MASKED>(x, planes, scales, plane_mask, out, M, K, N, G,
-                            sign_mag, plane_major, n_planes, demand_drop, s);
+    launch_t<float, MASKED>(x, planes, scales, plane_mask, out, M, K, N, G, sign_mag,
+                            plane_major, n_planes, demand_drop, s);
   return (int)cudaGetLastError();
 }
 
@@ -138,18 +167,20 @@ int launch(const void* x, const void* planes, const void* scales,
 
 extern "C" int qsq_matvec(const void* x, const void* planes, const void* scales,
                           void* out, int M, int K, int N, int G, int x_bf16,
-                          int sign_mag, int plane_major, int n_planes,
-                          void* stream) {
+                          int sign_mag, int plane_major, int n_planes, int nt,
+                          int wn, int wk, int cs, int persist, void* stream) {
   return launch<false>(x, planes, scales, nullptr, out, M, K, N, G, x_bf16,
-                       sign_mag, plane_major, n_planes, 0, stream);
+                       sign_mag, plane_major, n_planes, 0, nt, wn, wk, cs, persist,
+                       stream);
 }
 
 extern "C" int qsq_matvec_masked(const void* x, const void* plane_mask,
                                  const void* planes, const void* scales,
                                  void* out, int M, int K, int N, int G,
                                  int x_bf16, int sign_mag, int plane_major,
-                                 int demand_drop, void* stream) {
+                                 int demand_drop, int nt, int wn, int wk, int cs,
+                                 int persist, void* stream) {
   return launch<true>(x, planes, scales, plane_mask, out, M, K, N, G, x_bf16,
-                      sign_mag, plane_major, 3 - demand_drop, demand_drop,
-                      stream);
+                      sign_mag, plane_major, 3 - demand_drop, demand_drop, nt, wn,
+                      wk, cs, persist, stream);
 }

@@ -17,13 +17,19 @@ Table II codes (K, N) uint8 and scales (K//G, N) float32.
 from __future__ import annotations
 
 import collections
+import functools
+from typing import NamedTuple
 
 import torch
 
 from repro_torch.core import codec
 from repro_torch.kernels import ref
 
-GEMV_M_MAX = 16  # the GEMV kernels keep all of M in registers
+GEMV_M_MAX = 16  # the GEMV kernels hold all of M in one 16-row MMA tile
+SMS = 132  # streaming multiprocessors of an H100 SXM: the plan's fill target
+CLUSTER_MAX = 8  # the portable thread-block cluster size
+MAX_WARPS = 8  # 256 threads a block
+SMEM_MAX = 200 * 1024  # dynamic shared memory the kernels allow themselves
 
 # launches of each kernel, by wrapper name; counted only where a kernel
 # is launched (chip_smoke.py resets and reads them around the main path)
@@ -34,6 +40,96 @@ _X_DTYPES = (torch.float32, torch.bfloat16)
 
 def reset_launches() -> None:
     launches.clear()
+
+
+class LaunchPlan(NamedTuple):
+    """How a packed matmul is cut over the card (``csrc/qsq_mma.cuh``).
+
+    The K words are split into ``cs * wk`` contiguous slices (:meth:`k_slices`),
+    summed in slice order; the plan depends only on the kernel kind and
+    (M, K, N, G, x dtype), never on ``demand_drop`` or the masks, so masked
+    rows stay bit-identical to the unmasked kernel on truncated planes."""
+    route: str  # "mma": tensor cores (bf16 x, G % 16 == 0); "fma": the f32 FMA kernel
+    mt: int  # 16-row tiles per warp: 1 (GEMV), 4 (GEMM)
+    nt: int  # 8-column tiles per warp
+    wn: int  # warps along N in a block
+    wk: int  # warps along K in a block, each a contiguous K slice
+    cs: int  # blocks along K in a thread-block cluster, summed by rank 0
+    persist: int = 0  # 1: as many blocks as the card holds, column groups round robin
+
+    @property
+    def bn(self) -> int:
+        """Columns a block owns."""
+        return 8 * self.nt * self.wn
+
+    def grid(self, m: int, n: int) -> tuple[int, int]:
+        """The launch grid; a persistent plan's x is at most this, the kernel
+        sizes it to the blocks the card holds at once (at least one an SM)."""
+        return -(-n // self.bn) * self.cs, -(-m // (16 * self.mt))
+
+    def blocks(self, m: int, n: int) -> int:
+        if self.route != "mma":
+            return 0
+        gx, gy = self.grid(m, n)
+        return gx * gy
+
+    def smem_bytes(self, k: int, n_planes: int = 3) -> int:
+        """Shared memory of one block at most (``qsq_mma.cuh`` ``smem_bytes``,
+        with the masked GEMM's extra tiles): x rows over the block's K range
+        and each warp's ring (or the warps' partial sums), then rank 0's slots
+        for the other cluster ranks' sums."""
+        kw = k // 32
+        stages = 8 if self.mt == 1 else 4
+        tm = self.mt + n_planes - 1 if self.mt > 1 else self.mt
+        tile = 16 * tm * self.bn * 4
+        xs = 32 * -(-kw // self.cs) + 16
+        loop = 16 * self.mt * xs * 2 + self.wn * self.wk * stages * (n_planes + 2) * self.nt * 32
+        main = -(-max(loop, (self.wk - 1) * tile) // 16) * 16
+        return main + (self.cs - 1) * tile
+
+    def k_slices(self, k: int) -> list[tuple[int, int]]:
+        """The K range [lo, hi) of every slice, in reduction order: warp w
+        of cluster rank r holds slice r * wk + w (the kernel's slice_lo)."""
+        kw, s = k // 32, self.cs * self.wk
+        return [(32 * (i * kw // s), 32 * ((i + 1) * kw // s)) for i in range(s)]
+
+
+@functools.lru_cache(maxsize=1024)  # a pure function of its arguments, called per launch
+def launch_plan(kind: str, m: int, k: int, n: int, group_size: int,
+                x_dtype: torch.dtype) -> LaunchPlan:
+    """The split of one call of the GEMV (``kind="gemv"``) or GEMM kernel.
+
+    Wide N (at least two 64-column tiles an SM): a persistent grid, 8 warps
+    a block, 16 columns a warp, each over all of K.  Otherwise 8-column
+    warps, 4 warps a block along K, and the fewest blocks along K in a
+    cluster (at most 4 when a block keeps 4 warps along K) that put
+    :data:`SMS` blocks on the card, or as many as there are."""
+    if x_dtype != torch.bfloat16 or group_size % 16:
+        return LaunchPlan("fma", 0, 0, 0, 0, 0)
+    kw = k // 32
+    mt = 1 if kind == "gemv" else 4
+    row_tiles = -(-m // (16 * mt))
+    plan = LaunchPlan("mma", mt, 2, MAX_WARPS, 1, 1, persist=1)
+    if -(-n // 64) * row_tiles >= 2 * SMS and plan.smem_bytes(k) <= SMEM_MAX:
+        return plan
+    wk = min(4, kw)
+    for wn in (2, 1):
+        tiles = -(-n // (8 * wn)) * row_tiles
+        cs = 1
+        while cs < CLUSTER_MAX and tiles * cs < SMS and 2 * cs * wk <= kw:
+            cs *= 2
+        if tiles * cs >= SMS:
+            break
+    plan = LaunchPlan("mma", mt, 1, wn, wk, cs)
+    while plan.smem_bytes(k) > SMEM_MAX and 2 * plan.cs <= CLUSTER_MAX:
+        # x over a shorter K range: more blocks along K, fewer warps if need be
+        wk = plan.wk if 4 * plan.cs * plan.wk <= 2 * kw else max(1, plan.wk // 2)
+        if 2 * plan.cs * wk > kw:
+            break
+        plan = plan._replace(cs=2 * plan.cs, wk=wk)
+    if plan.smem_bytes(k) > SMEM_MAX:
+        return LaunchPlan("fma", 0, 0, 0, 0, 0)
+    return plan
 
 
 def _shape(x, planes, scales, group_size: int, plane_major: bool,
@@ -87,12 +183,14 @@ def _launch(name: str, x, planes, scales, plane_mask, group_size: int,
 
     m, k = x.shape
     n = planes.shape[-1]
+    p = launch_plan("gemv" if name.startswith("qsq_matvec") else "gemm", m, k, n,
+                    group_size, x.dtype)
     out = torch.empty((m, n), dtype=torch.float32, device=x.device)
     fn = getattr(build.load(), name)
     ptrs = [x.data_ptr()] + ([plane_mask.data_ptr()] if plane_mask is not None else [])
     ptrs += [planes.data_ptr(), scales.data_ptr(), out.data_ptr()]
     rc = fn(*ptrs, m, k, n, group_size, int(x.dtype == torch.bfloat16),
-            int(sign_mag), int(plane_major), tail,
+            int(sign_mag), int(plane_major), tail, p.nt, p.wn, p.wk, p.cs, p.persist,
             torch.cuda.current_stream(x.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"{name} launch failed (M={m}, K={k}, N={n}, "
