@@ -33,7 +33,24 @@ Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``
    continuous one did (deterministic algorithms on); one step profiled;
 7. the card against the CPU at the d64 test config: 3 train steps from one
    state, losses within rtol 1e-4, the step-0 gradients within 2e-4 of
-   each leaf's largest, compressed ones too except at near-ties.
+   each leaf's largest, compressed ones too except at near-ties;
+8. the third main path at full width, on phase 3's artifact: speculative
+   and static serving.  Verify rows (K4 at M = 40, K3 for the untiered
+   leaves) equal decode rows (K2/K1 at M = 8) bit for bit at the five
+   shapes, and the new shapes (M = 40, the static prefill M) pass phase
+   2's checks and are timed; 12 mixed hi/mid requests on 8 slots, half
+   speculating with SpecConfig("lo", 4), give the tokens of the same
+   requests served plainly, with K2 in every draft tick, K4 in every
+   verify, no plain version, and phase-labelled plane words equal to the
+   engine's meter; one speculative round profiled; the echo ladder
+   (a draft tier that drops nothing) accepts every draft; greedy
+   ``generate(continuous=False)`` on a single-tier engine launches K1 and
+   K3, and where it leaves the continuous path's tokens (at 30 layers and
+   at 2) the continuous top-2 logit gap is at most twice that path's bf16
+   error against f32 arithmetic there (a tie); two sampled runs
+   (temperature 0.8) from one seed agree; and at the d64 f32 config the
+   card's speculative and static tokens equal the CPU's, verify logits
+   within 1e-4.
 
 Any failed check raises, so the script exits non-zero and prints no
 result.  The second-to-last line is the per-kernel JSON summary and the
@@ -42,6 +59,7 @@ shared-memory report goes to ``build/kernels/build.log``.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import os
@@ -161,15 +179,20 @@ def f32_bound(torch, x, plane_mask, planes, scales, demand):
     return 2 * k * 2.0**-24 * out
 
 
-def check_kernels(torch, gen):
-    """Correctness at every shape, dtype and demand; raises on any miss."""
+def check_kernels(torch, gen, cases=None):
+    """Correctness at every shape, dtype and demand; raises on any miss.
+    ``cases`` is a list of (kernel name, M); by default each kernel at its
+    phase-2 M."""
     from repro_torch.kernels import qsq, ref
 
+    if cases is None:
+        cases = [(name, m) for name, (_, m, _, _) in KERNELS.items()]
     n_checks = 0
     for k, n in SHAPES:
         for x_dtype in (torch.bfloat16, torch.float32):
             for demand in (0, 1, 2):
-                for name, (masked, m, _, _) in KERNELS.items():
+                for name, m in cases:
+                    masked = KERNELS[name][0]
                     x, planes, scales, mask = operands(torch, m, k, n, gen, x_dtype, demand)
                     kw = dict(group_size=GROUP, sign_mag=True, plane_major=True,
                               demand_drop=demand)
@@ -385,7 +408,7 @@ def serve_full_width(torch, workdir: Path, cfg, device="cuda"):
     eng._admit, eng._cont_step = orig_admit, orig_step
     profile_decode(torch, eng, prompts[:8], names)
     profile_admission(torch, eng, prompts[11], "mid")
-    return launches
+    return launches, path
 
 
 def kernel_of(key: str) -> str | None:
@@ -489,14 +512,15 @@ def profile_decode(torch, eng, prompts, names, steps=4):
 # --------------------------------------------------------------------------
 # Phase 4: the card against the CPU at the test config
 # --------------------------------------------------------------------------
-def card_vs_cpu(torch, workdir: Path, card="cuda"):
+def d64_model_params(torch):
+    """The 2-layer d64 test config (f32) and its parameters on the CPU,
+    drawn with numpy from seed 0."""
     import numpy as np
 
-    from repro_torch import api
     from repro_torch.configs.base import ArchConfig
     from repro_torch.convert import params_from_numpy
     from repro_torch.models.api import Model
-    from repro_torch.models.base import init_params, is_desc
+    from repro_torch.models.base import is_desc
     from repro_torch.tree import tree_map
 
     cfg = ArchConfig(name="smollm-bench", family="dense", n_layers=2, d_model=64, n_heads=4,
@@ -510,7 +534,16 @@ def card_vs_cpu(torch, workdir: Path, card="cuda"):
         std = {"fan_in": d.scale / np.sqrt(d.shape[-2]), "normal": d.scale * 0.02}[d.init]
         return (rng.standard_normal(d.shape) * std).astype(np.float32)
 
-    params = params_from_numpy(tree_map(draw, model.param_descs(), is_leaf=is_desc), "cpu")
+    return model, params_from_numpy(tree_map(draw, model.param_descs(), is_leaf=is_desc), "cpu")
+
+
+def card_vs_cpu(torch, workdir: Path, card="cuda"):
+    import numpy as np
+
+    from repro_torch import api
+    from repro_torch.models.base import init_params
+
+    model, params = d64_model_params(torch)
     path = api.compress(model, params, device="cpu").save(workdir / "d64.edge.npz")
     art = api.load(path)
     prompts = [[5, 9, 2], [17], [3, 3, 3, 3, 8, 1], [250, 1], [7] * 8, [1, 2, 3, 4]]
@@ -807,6 +840,422 @@ def train_card_vs_cpu(torch, card="cuda", steps=3):
         f"values (allowed 0.1%: near-ties)")
 
 
+# --------------------------------------------------------------------------
+# Phase 8: speculative and static serving at full width
+# --------------------------------------------------------------------------
+W_VERIFY = 5  # the verify window: the anchor and k = 4 drafts
+M_VERIFY = M_GEMV * W_VERIFY  # 8 slots x (k + 1) = 40 rows
+MAX_NEW = 16
+
+
+def check_verify_rows(torch, gen) -> int:
+    """Every row of a verify window (K4 / K3 at M = 40) equals the decode
+    row of the same x (K2 / K1 at M = 8) bit for bit: five shapes, bf16 and
+    f32 x, demand 0 and 2.  Row b * W + j of the window is lane b's
+    position j, as ``PackedWeight.matmul`` flattens (B, W)."""
+    from repro_torch.kernels import qsq, ref
+
+    n = 0
+    for k, nn in SHAPES:
+        for x_dtype in (torch.bfloat16, torch.float32):
+            for demand in (0, 2):
+                x, planes, scales, _ = operands(torch, M_VERIFY, k, nn, gen, x_dtype, demand)
+                variants = torch.tensor(ref.MASK_VARIANTS[demand:], dtype=torch.int32,
+                                        device="cuda")
+                lane = variants[torch.randint(0, len(variants), (M_GEMV,), generator=gen,
+                                              device="cuda")]
+                mask = lane.repeat_interleave(W_VERIFY).contiguous()
+                kw = dict(group_size=GROUP, sign_mag=True, plane_major=True,
+                          demand_drop=demand)
+                win_m = qsq.qsq_matmul_masked(x, mask, planes, scales, **kw)
+                win = qsq.qsq_matmul(x, planes, scales, group_size=GROUP, sign_mag=True,
+                                     plane_major=True)
+                for j in range(W_VERIFY):
+                    xj = x[j::W_VERIFY].contiguous()
+                    dec_m = qsq.qsq_matvec_masked(xj, lane, planes, scales, **kw)
+                    dec = qsq.qsq_matvec(xj, planes, scales, group_size=GROUP, sign_mag=True,
+                                         plane_major=True)
+                    if not (torch.equal(win_m[j::W_VERIFY], dec_m)
+                            and torch.equal(win[j::W_VERIFY], dec)):
+                        raise AssertionError(
+                            f"verify rows differ from decode rows: K={k} N={nn} {x_dtype} "
+                            f"demand={demand} position {j}: masked max |diff| "
+                            f"{float((win_m[j::W_VERIFY] - dec_m).abs().max()):.3e}, "
+                            f"unmasked {float((win[j::W_VERIFY] - dec).abs().max()):.3e}")
+                    n += 2
+    torch.cuda.synchronize()
+    return n
+
+
+def time_new_shapes(torch, gen, m_static: int):
+    """K4 / K3 at the verify window and K3 at the static prefill, summed over
+    the five shapes (bf16 x, all planes, cold L2)."""
+    flush = Flush(torch)
+    for name, m in (("qsq_matmul_masked", M_VERIFY), ("qsq_matmul", M_VERIFY),
+                    ("qsq_matmul", m_static)):
+        tot = [0.0] * 5
+        for k, n in SHAPES:
+            b_s, o_s, ms, plain_ms, lib_ms = time_one(torch, gen, flush, name, KERNELS[name][0],
+                                                      m, k, n, 0)
+            for i, v in enumerate((ms, plain_ms, lib_ms, max(b_s, o_s) * 1e3)):
+                tot[i] += v
+            say(f"  {name:18s} K={k:5d} N={n:5d} M={m:3d}: kernel {ms * 1e3:8.2f} us  "
+                f"torch.matmul {lib_ms * 1e3:8.2f} us  bound {max(b_s, o_s) * 1e6:6.2f} us")
+        say(f"  {name} at M={m}, summed: kernel {tot[0]:.4f} ms, plain {tot[1]:.4f} ms, "
+            f"torch.matmul {tot[2]:.4f} ms, bound {tot[3]:.4f} ms")
+    del flush
+
+
+def _stream(torch, eng, prompts, quals, spec, speculate):
+    """12 requests, 8 up front and 4 more joining the running decode, as in
+    phase 3; ``spec[i]`` requests speculate with ``speculate``."""
+    eng.reset_stream()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rids = [eng.submit(p, max_new=MAX_NEW, quality=q, speculate=speculate if sp else None)
+            for p, q, sp in zip(prompts[:8], quals, spec, strict=False)]
+    for i in range(8, len(prompts)):
+        eng.step()
+        eng.step()
+        rids.append(eng.submit(prompts[i], max_new=MAX_NEW, quality=quals[i],
+                               speculate=speculate if spec[i] else None))
+    eng.run_until_drained()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    out = []
+    for r in rids:
+        st = eng.poll(r)
+        if st.finish_reason is None or st.finish_reason.value != "done" or \
+                len(st.tokens) != MAX_NEW:
+            raise AssertionError(f"request {r} ended {st.finish_reason} with "
+                                 f"{len(st.tokens)} tokens")
+        out.append(st.tokens)
+    return out, eng.stream_stats(), wall
+
+
+def speculative_and_static(torch, gen, path: Path, cfg) -> dict:
+    from repro_torch import api
+    from repro_torch.kernels import dispatch, qsq, ref
+    from repro_torch.models.api import Model
+    from repro_torch.models.base import init_params
+
+    rng = torch.Generator().manual_seed(1)
+    lengths = [5 + (59 * i) // 11 for i in range(12)]  # 5 .. 64
+    prompts = [torch.randint(0, cfg.vocab, (n,), generator=rng).tolist() for n in lengths]
+    m_static = M_GEMV * max(lengths[:8])
+    n = check_kernels(torch, gen, [("qsq_matmul_masked", M_VERIFY), ("qsq_matmul", M_VERIFY),
+                                   ("qsq_matmul", m_static)])
+    say(f"  {n} checks at the new shapes (K4/K3 at M={M_VERIFY}, K3 at M={m_static}) passed: "
+        f"f32 bound, masked == truncated and demand-routed == masked bit for bit")
+    n = check_verify_rows(torch, gen)
+    say(f"  verify rows == decode rows bit for bit: {n} checks (K4 vs K2 and K3 vs K1, "
+        f"5 shapes, bf16 and f32, demand 0 and 2, every window position)")
+    time_new_shapes(torch, gen, m_static)
+
+    art = api.load(path, verify=True)
+    eng = art.engine(quality="mid", batch_slots=8, device="cuda")
+    quals = ["hi" if i % 2 == 0 else "mid" for i in range(12)]
+    spec = [(i // 2) % 2 == 0 for i in range(12)]  # half of each tier speculates
+    sc = api.SpecConfig("lo", k=W_VERIFY - 1)
+    plain_toks, plain_stats, plain_wall = _stream(torch, eng, prompts, quals, spec, None)
+
+    ticks = []
+    orig_step, orig_verify = eng._cont_step, eng._verify
+
+    def counted(fn, kind):
+        """Record each draft tick's and each verify's launches (and the
+        verify's rows, M = 8 x window)."""
+        def wrapped(*a):
+            before = dict(qsq.launches)
+            draft = dispatch.traffic["phase:draft:plane_words_read"]
+            out = fn(*a)
+            if kind == "verify" or dispatch.traffic["phase:draft:plane_words_read"] > draft:
+                m = a[2].numel() if kind == "verify" else a[2].shape[0]
+                ticks.append((kind, m, {k: v - before.get(k, 0)
+                                        for k, v in qsq.launches.items()}))
+            return out
+        return wrapped
+
+    eng._cont_step, eng._verify = counted(orig_step, "draft"), counted(orig_verify, "verify")
+    qsq.reset_launches()
+    ref.calls.clear()
+    dispatch.reset_counters()
+    try:
+        spec_toks, stats, spec_wall = _stream(torch, eng, prompts, quals, spec, sc)
+    finally:
+        eng._cont_step, eng._verify = orig_step, orig_verify
+    launches = dict(qsq.launches)
+    plain_calls = sum(ref.calls.values())
+    words = eng._session.phase_words
+    tr = dispatch.traffic
+    if spec_toks != plain_toks:
+        bad = [i for i, (a, b) in enumerate(zip(spec_toks, plain_toks, strict=True)) if a != b]
+        raise AssertionError(f"speculative tokens differ from plain decode for requests {bad}")
+    if stats["drafted"] == 0:
+        raise AssertionError("no request drafted")
+    if plain_calls:
+        raise AssertionError(f"plain versions ran on the speculative path: {dict(ref.calls)}")
+    n_draft = sum(1 for kind, _, _ in ticks if kind == "draft")
+    n_verify = sum(1 for kind, _, _ in ticks if kind == "verify")
+    n_full = sum(1 for kind, m, _ in ticks if kind == "verify" and m == M_VERIFY)
+    if not n_draft or not n_full:
+        raise AssertionError(f"{n_draft} draft ticks and {n_full} verifies at M={M_VERIFY}")
+    for kind, m, d in ticks:
+        # a verify window clamped near max_new to M <= 16 rows is a GEMV call
+        want = "qsq_matmul_masked" if m > 16 else "qsq_matvec_masked"
+        if not d.get(want):
+            raise AssertionError(f"a {kind} call at M={m} launched no {want}: {d}")
+    for phase in ("draft", "verify"):
+        if (tr[f"phase:{phase}:plane_words_read"], tr[f"phase:{phase}:plane_words_full"]) != \
+                tuple(words[phase]):
+            raise AssertionError(f"phase {phase} traffic {dict(tr)} != meter {words[phase]}")
+    if 4 * tr["plane_words_read"] != stats["bytes_read"]:
+        raise AssertionError("per-call dispatch traffic disagrees with the byte meter")
+    say(f"  12 requests x {MAX_NEW} tokens on 8 slots (hi/mid, half speculating with "
+        f"SpecConfig('lo', {sc.k})): tokens identical to the same requests served plainly")
+    say(f"  drafted {stats['drafted']}, accepted {stats['accepted']} (rate "
+        f"{stats['acceptance_rate']:.4f}); bytes/token {stats['bytes_per_token']:.1f} "
+        f"speculative vs {plain_stats['bytes_per_token']:.1f} plain")
+    say(f"  {n_draft} draft ticks (each launched K2), {n_verify} verifies ({n_full} at "
+        f"M={M_VERIFY}; each at M > 16 launched K4, the rest K2); kernels launched: "
+        f"{launches}; plain versions called: {plain_calls}")
+    say(f"  phase words (per call == meter): draft {words['draft'][0]} of {words['draft'][1]}, "
+        f"verify {words['verify'][0]} of {words['verify'][1]}")
+    say(f"  tokens/s: speculative {stats['tokens'] / spec_wall:.1f} ({spec_wall:.3f} s), plain "
+        f"{plain_stats['tokens'] / plain_wall:.1f} ({plain_wall:.3f} s)")
+    profile_spec_round(torch, eng, prompts[:8], sc)
+
+    echo_tiers = api.QualitySpec((api.QualityTier("hi", 0, 0.0),
+                                  api.QualityTier("echo", 0, 0.0)))
+    echo = api.EdgeArtifact(wire=art.wire, arch_config=art.arch_config, tiers=echo_tiers,
+                            rank=art.rank).engine(quality="hi", batch_slots=8, device="cuda")
+    e_plain, _, _ = _stream(torch, echo, prompts[:8], ["hi"] * 8, [True] * 8, None)
+    e_spec, e_stats, _ = _stream(torch, echo, prompts[:8], ["hi"] * 8, [True] * 8,
+                                 api.SpecConfig("echo", k=W_VERIFY - 1))
+    if e_spec != e_plain or e_stats["drafted"] == 0 or e_stats["acceptance_rate"] != 1.0:
+        raise AssertionError(f"echo ladder: acceptance {e_stats['acceptance_rate']}, tokens "
+                             f"{'identical' if e_spec == e_plain else 'differ'}")
+    say(f"  echo ladder: {e_stats['accepted']} of {e_stats['drafted']} drafts accepted "
+        f"(rate exactly 1.0), tokens identical to plain decode")
+    del echo, eng
+
+    static_launches = static_path(torch, art, prompts[:8], "full width")
+    sampled_twice(torch, art, prompts[:8])
+    # the same check where bf16 rounding is not yet amplified to the
+    # logits' size: smollm-135m's widths at 2 layers
+    cfg2 = dataclasses.replace(cfg, n_layers=2)
+    model2 = Model(cfg2)
+    art2 = api.compress(model2, init_params(model2.param_descs(), torch.Generator(
+        device="cuda").manual_seed(0), device="cuda"), tiers=art.tiers, device="cuda")
+    static_path(torch, art2, prompts[:8], "2 layers")
+    return {k: launches.get(k, 0) + static_launches.get(k, 0)
+            for k in set(launches) | set(static_launches)}
+
+
+def profile_spec_round(torch, eng, prompts, sc):
+    """Device time by kernel over one speculative round (k draft ticks and
+    one verify) at 8 speculating slots, after an admission step."""
+    from torch.profiler import ProfilerActivity, profile
+
+    eng.reset_stream()
+    for p in prompts:
+        eng.submit(p, max_new=3 * (sc.k + 1) + 2, quality="hi", speculate=sc)
+    eng.step()  # admissions and the first round
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        info = eng.step()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    eng.run_until_drained()
+    kern = device_kernels(prof)
+    busy = sum(t for _, t, _ in kern)
+    say(f"  profile of one speculative round (8 slots, k={sc.k}, {info.drafted} drafted, "
+        f"{info.accepted} accepted): wall {wall_us / 1e3:.2f} ms, device busy "
+        f"{busy / 1e3:.3f} ms ({100 * busy / wall_us:.1f}% of wall), "
+        f"{sum(n for _, _, n in kern)} launches")
+    by = {}
+    for key, t, n in kern:
+        name = kernel_of(key)
+        if name:
+            by[name] = (by.get(name, (0.0, 0))[0] + t, by.get(name, (0.0, 0))[1] + n)
+    for name, (t, n) in sorted(by.items()):
+        say(f"    {name:18s} {t / 1e3:7.3f} ms = {100 * t / max(busy, 1e-9):5.1f}% of device "
+            f"time, {n:5d} launches ({t / max(n, 1):.1f} us each)")
+    for name, t, n in sorted(kern, key=lambda r: -r[1])[:6]:
+        say(f"    {t / 1e3:7.3f} ms  {n:5d} launches  {name[:90]}")
+
+
+def _replay_logits(torch, model, params, prompts, toks, static: bool):
+    """Each step's logits (8, V) of the static (one batch-8 prefill) or the
+    continuous (single-slot admissions into a batch-8 cache) path, fed the
+    path's own tokens: the same operations and shapes as the engine's."""
+    from repro_torch.models.base import init_params
+
+    b, maxp = len(prompts), max(len(p) for p in prompts)
+    cache_len = maxp + MAX_NEW + 1
+    pad = torch.zeros((b, maxp), dtype=torch.int32)
+    for i, p in enumerate(prompts):
+        pad[i, maxp - len(p):] = torch.tensor(p)
+    lens = torch.tensor([len(p) for p in prompts], dtype=torch.int32)
+    if static:
+        cache = init_params(model.cache_descs(b, cache_len), device="cuda")
+        cache, first = model.prefill(params, cache, pad.to("cuda"), lens.to("cuda"))
+        extra = {}
+    else:
+        cache = init_params(model.cache_descs(b, cache_len), device="cuda")
+        zero = init_params(model.cache_descs(1, cache_len), device="cuda")
+        tiers = torch.zeros((1,), dtype=torch.int32, device="cuda")
+        rows = []
+        for i in range(b):
+            one, lg = model.prefill(params, zero, pad[i:i + 1].to("cuda"),
+                                    lens[i:i + 1].to("cuda"), tiers, 0)
+            cache = model.cache_insert_slot(cache, one, i)
+            rows.append(lg[0])
+        first = torch.stack(rows)
+        extra = {"active": torch.ones((b,), dtype=torch.int32, device="cuda"),
+                 "tiers": torch.zeros((b,), dtype=torch.int32, device="cuda"), "demand": 0}
+    out = [first]
+    t = torch.tensor(toks, dtype=torch.int32, device="cuda")  # (b, MAX_NEW)
+    for step in range(MAX_NEW - 1):
+        lg, cache = model.decode(params, cache, {"tokens": t[:, step:step + 1], **extra})
+        out.append(lg[:, -1])
+    return torch.stack(out, 1).float()  # (b, MAX_NEW, V)
+
+
+def static_path(torch, art, prompts, label: str) -> dict:
+    """Greedy ``generate(continuous=False)`` on a single-tier engine against
+    the continuous path.
+
+    A prompt whose tokens leave the continuous ones must do so at a tie:
+    the continuous path's top-2 logit gap there at most twice its bf16
+    error, the largest |logit - f32 logit| of the same weights, history and
+    shapes evaluated in f32 arithmetic.  (At random weights the model
+    amplifies rounding from layer to layer, so at 30 layers that error is
+    of the logits' own size and only a bit-identical order keeps tokens.)"""
+    from repro_torch.kernels import qsq, ref
+    from repro_torch.models.api import Model
+
+    st = art.engine(quality="mid", continuous=False, batch_slots=8, device="cuda")
+    st.generate(prompts, max_new=MAX_NEW)  # warm the allocator
+    qsq.reset_launches()
+    ref.calls.clear()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    static = st.generate(prompts, max_new=MAX_NEW)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(qsq.launches)
+    if not launches.get("qsq_matvec") or not launches.get("qsq_matmul"):
+        raise AssertionError(f"the static path did not launch K1 and K3: {launches}")
+    if sum(ref.calls.values()):
+        raise AssertionError(f"plain versions ran on the static path: {dict(ref.calls)}")
+    maxp = max(len(p) for p in prompts)
+    say(f"  {label}: static greedy generate, {len(prompts)} prompts x {MAX_NEW} tokens in "
+        f"{wall:.3f} s "
+        f"({wall / MAX_NEW * 1e3:.2f} ms per decode position, prefill M={len(prompts) * maxp}); "
+        f"kernels launched: {launches}; plain versions called: 0")
+    cont = art.engine(quality="mid", batch_slots=8, per_request=False, device="cuda")
+    continuous = cont.generate(prompts, max_new=MAX_NEW)
+    ls = _replay_logits(torch, st.model, st.params, prompts, static, True)
+    lc = _replay_logits(torch, cont.model, cont.params, prompts, continuous, False)
+    for lg, toks, which in ((ls, static, "static"), (lc, continuous, "continuous")):
+        if lg.argmax(-1).cpu().tolist() != toks:
+            raise AssertionError(f"the {which} replay does not reproduce the {which} tokens")
+    m32 = Model(dataclasses.replace(cont.model.cfg, dtype=torch.float32))
+    err = (lc - _replay_logits(torch, m32, cont.params, prompts, continuous, False)).abs()
+    err = err.amax(-1)  # (prompts, MAX_NEW): the continuous path's bf16 error
+    say(f"    continuous path's bf16 error against f32 arithmetic: median "
+        f"{float(err.median()):.3e}, max {float(err.max()):.3e} (max |logit| "
+        f"{float(lc.abs().max()):.3e})")
+    n_div = 0
+    for i, (a, b) in enumerate(zip(static, continuous, strict=True)):
+        if a == b:
+            continue
+        n_div += 1
+        t = next(j for j in range(MAX_NEW) if a[j] != b[j])
+        top = torch.topk(lc[i, t], 2).values
+        gap = float(top[0] - top[1])
+        bound = 2 * float(err[i, t])
+        delta = float((ls[i, t] - lc[i, t]).abs().max())
+        say(f"    prompt {i}: static leaves the continuous tokens at position {t}: top-2 gap "
+            f"{gap:.3e} (bound {bound:.3e}), paths' logits differ by up to {delta:.3e}")
+        if gap > bound:
+            raise AssertionError(f"prompt {i} diverges at position {t} with a top-2 gap "
+                                 f"{gap:.3e} above the bf16 bound {bound:.3e}: not a tie")
+    say(f"  {label}: static vs continuous greedy: {len(prompts) - n_div} of {len(prompts)} token "
+        f"lists identical; {n_div} diverge, each at a tie within the bf16 bound")
+    return launches
+
+
+def sampled_twice(torch, art, prompts) -> None:
+    """Two sampled runs (temperature 0.8) from one seed give one token list."""
+    hot = art.engine(quality="mid", temperature=0.8, batch_slots=8, device="cuda")
+    a = hot.generate(prompts, max_new=MAX_NEW, seed=7)
+    b = hot.generate(prompts, max_new=MAX_NEW, seed=7)
+    if a != b or not all(len(x) == MAX_NEW for x in a):
+        raise AssertionError("two sampled runs from one seed differ")
+    greedy = art.engine(quality="mid", continuous=False, batch_slots=8,
+                        device="cuda").generate(prompts, max_new=MAX_NEW)
+    say(f"  sampling (temperature 0.8, seed 7): two runs identical, "
+        f"{sum(x != y for x, y in zip(a, greedy, strict=True))} of {len(a)} lists differ "
+        f"from greedy")
+
+
+def spec_card_vs_cpu(torch, workdir: Path, card="cuda"):
+    """d64 f32: speculative and static tokens identical on the card and the
+    CPU (and speculative == plain on each), verify logits within 1e-4."""
+    from repro_torch import api
+    from repro_torch.models.base import init_params
+
+    model, params = d64_model_params(torch)
+    path = api.compress(model, params, device="cpu").save(workdir / "d64_spec.edge.npz")
+    art = api.load(path)
+    prompts = [[5, 9, 2], [17], [3, 3, 3, 3, 8, 1], [250, 1], [7] * 8, [1, 2, 3, 4]]
+    quals = ["hi", "mid", "hi", "mid", "hi", "hi"]
+    toks, logits = {}, {}
+    for dev in ("cpu", card):
+        eng = art.engine(quality="hi", batch_slots=4, max_prompt=8, max_len=32, device=dev)
+        runs = []
+        for speculate in (api.SpecConfig("lo", k=3), None):
+            eng.reset_stream()
+            rids = [eng.submit(p, max_new=8, quality=q, speculate=speculate if i % 2 == 0
+                               else None) for i, (p, q) in enumerate(zip(prompts, quals))]
+            eng.run_until_drained()
+            runs.append([eng.poll(r).tokens for r in rids])
+        if runs[0] != runs[1]:
+            raise AssertionError(f"{dev}: speculative tokens differ from plain decode")
+        if eng.stream_stats()["drafted"] != 0:
+            raise AssertionError("the plain run drafted")
+        static = art.engine(quality="mid", continuous=False, batch_slots=4,
+                            device=dev).generate(prompts[:4], max_new=8)
+        toks[dev] = (runs[0], static)
+        tp, _ = art.serve_params("hi", per_request=True, device=dev)
+        tiers = torch.tensor([0, 2, 1], dtype=torch.int32, device=dev)
+        t = torch.tensor([[0, 0, 5, 9, 2, 8], [1, 2, 3, 4, 5, 6], [0, 0, 0, 0, 7, 7]],
+                         dtype=torch.int32, device=dev)
+        lens = torch.tensor([4, 6, 2], dtype=torch.int32, device=dev)
+        cache = init_params(model.cache_descs(3, 16), device=dev)
+        cache, _ = model.prefill(tp, cache, t, lens, tiers, 0)
+        window = torch.tensor([[3, 4, 5, 6], [9, 9, 0, 0], [1, 2, 3, 0]], dtype=torch.int32,
+                              device=dev)
+        batch = {"tokens": window, "start": torch.full((3,), 6, dtype=torch.int32, device=dev),
+                 "wlen": torch.tensor([4, 2, 3], dtype=torch.int32, device=dev),
+                 "spec": torch.ones((3,), dtype=torch.int32, device=dev), "tiers": tiers,
+                 "demand": 0}
+        lg, _ = model.verify(tp, cache, batch)
+        logits[dev] = lg.cpu()
+    if toks["cpu"] != toks[card]:
+        raise AssertionError(f"speculative/static tokens differ between card and CPU:\n{toks}")
+    diff = (logits[card] - logits["cpu"]).abs()
+    if not bool((diff <= 1e-4 + 1e-4 * logits["cpu"].abs()).all()):
+        raise AssertionError(f"card verify logits off the CPU's by {float(diff.max()):.3e}")
+    path.unlink()
+    say(f"  speculative ({sum(map(len, toks[card][0]))}) and static "
+        f"({sum(map(len, toks[card][1]))}) tokens identical on card and CPU, speculative == "
+        f"plain on both; verify logits max |diff| {float(diff.max()):.3e} (1e-4 abs + rel)")
+
+
 def main() -> int:
     import torch
 
@@ -848,11 +1297,10 @@ def main() -> int:
     say("[3] full-width smollm-135m from a compressed, saved and reloaded EdgeArtifact")
     from repro_torch.configs import get_arch
 
-    launches = serve_full_width(torch, workdir, get_arch("smollm_135m"))
+    launches, art_path = serve_full_width(torch, workdir, get_arch("smollm_135m"))
     say("[4] card against CPU at the 2-layer d64 test config")
     card_vs_cpu(torch, workdir)
-    for p in workdir.glob("*.npz"):
-        p.unlink()
+    (workdir / "d64.edge.npz").unlink()
 
     say("[5] the encoder K5 against its plain version")
     n5, k5_err = check_quantize(torch, gen)
@@ -867,9 +1315,15 @@ def main() -> int:
     train_launches = train_full_width(torch, workdir, get_arch("smollm_135m"))
     say("[7] training on the card against the CPU at the 2-layer d64 test config")
     train_card_vs_cpu(torch)
+    say("[8] full-width smollm-135m speculative and static serving")
+    spec_launches = speculative_and_static(torch, gen, art_path, get_arch("smollm_135m"))
+    art_path.unlink()
+    say("[8] card against CPU: speculative and static serving at the d64 test config")
+    spec_card_vs_cpu(torch, workdir)
 
     for name, row in rows.items():
         row["launches"] = launches.get(name, 0)
+        row["launches_spec_static"] = spec_launches.get(name, 0)
         row["max_abs_err"] = None
     errs = max_abs_errors(torch, gen)
     for name, e in errs.items():

@@ -1,18 +1,21 @@
 """Per-layer quantization policy (the port of ``repro/core/policy.py``).
 
-``sensitivity_rank`` and ``budgeted_policy`` are not ported yet (ROADMAP
-Queue 1, item 7).
+:class:`QuantPolicy` maps a tree path to a QSQConfig; the calibration
+search :func:`sensitivity_rank` ranks layers by the loss increase their
+quantization causes, and :func:`budgeted_policy` folds such a ranking into
+per-layer phi overrides (``compress(sensitivity=...)`` does both).
 """
 from __future__ import annotations
 
 import dataclasses
 import re
-from typing import Mapping
+from typing import Callable, Mapping
 
 import numpy as np
+import torch
 
 from repro_torch.core.qsq import QSQConfig
-from repro_torch.tree import path_str
+from repro_torch.tree import path_str, tree_leaves_with_path, tree_map_with_path
 
 # Param-path regexes that are never quantized (tiny and sensitive), matched
 # case-sensitively against the '/'-joined tree path.
@@ -21,7 +24,8 @@ DEFAULT_EXCLUDE = (
     "a_log", "dt_bias", r"(^|/)D($|/)",
 )
 
-__all__ = ["DEFAULT_EXCLUDE", "QuantPolicy", "path_str"]
+__all__ = ["DEFAULT_EXCLUDE", "QuantPolicy", "budgeted_policy", "path_str",
+           "sensitivity_rank"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -57,3 +61,48 @@ class QuantPolicy:
         if g != self.base.group_size:
             return dataclasses.replace(self.base, group_size=g)
         return self.base
+
+
+def sensitivity_rank(params, loss_fn: Callable, policy: QuantPolicy,
+                     batch) -> list[tuple[str, float]]:
+    """Rank quantizable layers by quantization-induced loss increase.
+
+    Quantizes ONE layer at a time with its ``policy`` config (grouped along
+    the leading axis, as the JAX package's ``quantize`` does), measures
+    ``loss_fn(params, batch)`` (a scalar tensor) on the calibration batch,
+    and sorts the deltas descending: most sensitive first.
+    """
+    from repro_torch.core import qsq as _qsq
+
+    flat = tree_leaves_with_path(params)
+    with torch.no_grad():
+        base_loss = float(loss_fn(params, batch))
+        results = []
+        for path, leaf in flat:
+            p = path_str(path)
+            cfg = policy.config_for(p, tuple(leaf.shape))
+            if cfg is None:
+                continue
+            deq = _qsq.dequantize(_qsq.quantize(leaf, cfg), leaf.dtype)
+            mutated = tree_map_with_path(
+                lambda q, a, p=p, deq=deq: deq if path_str(q) == p else a, params)
+            results.append((p, float(loss_fn(mutated, batch)) - base_loss))
+    return sorted(results, key=lambda t: -t[1])
+
+
+def budgeted_policy(sens: list[tuple[str, float]], policy: QuantPolicy,
+                    phi_by_rank=(4, 4, 2, 1)) -> QuantPolicy:
+    """Assign higher phi (more levels) to more sensitive layers.
+
+    ``phi_by_rank`` gives phi for sensitivity quartiles, most -> least
+    sensitive.  Returns a policy with per-layer overrides.
+    """
+    if not sens:
+        return policy
+    n = len(sens)
+    overrides = dict(policy.overrides)
+    for rank, (path, _) in enumerate(sens):
+        quartile = min(len(phi_by_rank) - 1, (rank * len(phi_by_rank)) // n)
+        overrides[re.escape(path)] = dataclasses.replace(policy.base,
+                                                         phi=phi_by_rank[quartile])
+    return dataclasses.replace(policy, overrides=overrides)

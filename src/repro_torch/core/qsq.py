@@ -173,3 +173,11 @@ def quantize(w: torch.Tensor, cfg: QSQConfig) -> QSQTensor:
         w, phi=cfg.phi, group_size=cfg.group_size, assign=cfg.assign,
         delta=cfg.delta, gamma_frac=cfg.gamma_frac, refit_alpha=cfg.refit_alpha)
     return QSQTensor(levels=levels, scales=scales, group_size=cfg.group_size, phi=cfg.phi)
+
+
+def dequantize(q: QSQTensor, dtype=torch.float32) -> torch.Tensor:
+    """w_hat = alpha * beta, groups along axis 0 (the inverse of :func:`quantize`)."""
+    k = q.levels.shape[0]
+    lev = q.levels.to(torch.float32).reshape(k // q.group_size, q.group_size,
+                                             *q.levels.shape[1:])
+    return (lev * q.scales.unsqueeze(1)).reshape(q.levels.shape).to(dtype)

@@ -12,10 +12,13 @@ ragged M and N themselves, so no operand is padded.
 :func:`packed_matmul` adds to them when it runs.  (The JAX package counts
 at trace time — once per compiled program — so its counters stay frozen
 across cached dispatches; the port runs eagerly and counts each one.)
+Inside :func:`dispatch_phase` every call also adds its plane words under
+``"phase:<label>:plane_words_read|full"``, per call as well.
 """
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 
 import torch
@@ -35,15 +38,35 @@ counters: collections.Counter = collections.Counter()
 #   "<route>:planes<P>" — calls that streamed P of the 3 bit-planes
 #   "plane_words_read"  — int32 plane words the routed kernel streams
 #   "plane_words_full"  — words a full 3-plane stream would have read
+#   "phase:<label>:plane_words_read|full" — the same, for calls made inside
+#                         dispatch_phase(label)
 traffic: collections.Counter = collections.Counter()
 
-__all__ = ["GEMV_M_MAX", "MASK_VARIANTS", "Plan", "counters", "packed_matmul",
-           "plan", "reset_counters", "traffic"]
+# serving-phase label for traffic attribution ("" = unlabeled), set only
+# through dispatch_phase()
+_phase: str = ""
+
+__all__ = ["GEMV_M_MAX", "MASK_VARIANTS", "Plan", "counters", "dispatch_phase",
+           "packed_matmul", "plan", "reset_counters", "traffic"]
 
 
 def reset_counters() -> None:
     counters.clear()
     traffic.clear()
+
+
+@contextlib.contextmanager
+def dispatch_phase(label: str):
+    """Attribute the plane traffic of every call inside the block to a
+    serving phase: the engine wraps its speculative draft ticks and verify
+    dispatches in ``dispatch_phase("draft")`` / ``dispatch_phase("verify")``."""
+    global _phase
+    prev = _phase
+    _phase = str(label)
+    try:
+        yield
+    finally:
+        _phase = prev
 
 
 @dataclasses.dataclass(frozen=True)
@@ -90,6 +113,9 @@ def packed_matmul(x: torch.Tensor, planes: torch.Tensor, scales: torch.Tensor, *
     traffic[f"{p.route}:planes{n_read}"] += 1
     traffic["plane_words_read"] += n_read * words
     traffic["plane_words_full"] += 3 * words
+    if _phase:
+        traffic[f"phase:{_phase}:plane_words_read"] += n_read * words
+        traffic[f"phase:{_phase}:plane_words_full"] += 3 * words
     kw = dict(group_size=group_size, sign_mag=sign_mag, plane_major=plane_major,
               demand_drop=demand_drop)
     if plane_mask is not None:

@@ -26,6 +26,9 @@ from repro_torch.core import codec
 from repro_torch.kernels import ref
 
 GEMV_M_MAX = 16  # the GEMV kernels hold all of M in one 16-row MMA tile
+# a GEMM call of at most this many rows (one 64-row tile) gets the GEMV's
+# split of K, so its rows equal the GEMV's bit for bit (speculative verify)
+SAME_PLAN_ROWS = 64
 SMS = 132  # streaming multiprocessors of an H100 SXM: the plan's fill target
 CLUSTER_MAX = 8  # the portable thread-block cluster size
 MAX_WARPS = 8  # 256 threads a block
@@ -103,14 +106,24 @@ def launch_plan(kind: str, m: int, k: int, n: int, group_size: int,
     a block, 16 columns a warp, each over all of K.  Otherwise 8-column
     warps, 4 warps a block along K, and the fewest blocks along K in a
     cluster (at most 4 when a block keeps 4 warps along K) that put
-    :data:`SMS` blocks on the card, or as many as there are."""
+    :data:`SMS` blocks on the card, or as many as there are.
+
+    At one row tile (the GEMV, and the GEMM up to :data:`SAME_PLAN_ROWS`
+    rows) a plan must fit both kernels' shared memory, so the two kinds
+    take the same split and their rows agree bit for bit."""
     if x_dtype != torch.bfloat16 or group_size % 16:
         return LaunchPlan("fma", 0, 0, 0, 0, 0)
     kw = k // 32
     mt = 1 if kind == "gemv" else 4
     row_tiles = -(-m // (16 * mt))
+
+    def smem(plan: LaunchPlan) -> int:
+        if row_tiles > 1:
+            return plan.smem_bytes(k)
+        return max(plan._replace(mt=t).smem_bytes(k) for t in (1, 4))
+
     plan = LaunchPlan("mma", mt, 2, MAX_WARPS, 1, 1, persist=1)
-    if -(-n // 64) * row_tiles >= 2 * SMS and plan.smem_bytes(k) <= SMEM_MAX:
+    if -(-n // 64) * row_tiles >= 2 * SMS and smem(plan) <= SMEM_MAX:
         return plan
     wk = min(4, kw)
     for wn in (2, 1):
@@ -121,13 +134,13 @@ def launch_plan(kind: str, m: int, k: int, n: int, group_size: int,
         if tiles * cs >= SMS:
             break
     plan = LaunchPlan("mma", mt, 1, wn, wk, cs)
-    while plan.smem_bytes(k) > SMEM_MAX and 2 * plan.cs <= CLUSTER_MAX:
+    while smem(plan) > SMEM_MAX and 2 * plan.cs <= CLUSTER_MAX:
         # x over a shorter K range: more blocks along K, fewer warps if need be
         wk = plan.wk if 4 * plan.cs * plan.wk <= 2 * kw else max(1, plan.wk // 2)
         if 2 * plan.cs * wk > kw:
             break
         plan = plan._replace(cs=2 * plan.cs, wk=wk)
-    if plan.smem_bytes(k) > SMEM_MAX:
+    if smem(plan) > SMEM_MAX:
         return LaunchPlan("fma", 0, 0, 0, 0, 0)
     return plan
 

@@ -62,20 +62,34 @@ class Model:
                                  device=tokens.device)
         return make_cache_prefill_step(self)(params, cache, tokens, lengths, tiers, demand)
 
+    def verify(self, params, cache, batch):
+        """Batched multi-position forward for self-speculative verify: each
+        lane's window ``[start, start + wlen)`` scored in one pass at the
+        lane's verify tier -> (logits (B, W, V) f32, cache)."""
+        return transformer.lm_verify(params, self.cfg, cache, batch["tokens"], batch["start"],
+                                     batch["wlen"], batch["spec"], tiers=batch.get("tiers"),
+                                     demand=batch.get("demand"))
+
     def cache_insert_slot(self, live, one, slot: int):
         return transformer.lm_cache_insert_slot(live, one, slot)
 
     def serve_params(self, wire_tree, packed: bool = True, drop_map=None,
                      tier_drop_map=None, device="cuda"):
         """Wire artifact -> serving param tree on ``device``: packed matmul
-        weights, the rest decoded once.  Returns (params, n_packed)."""
+        weights and the rest decoded once (``packed``), or the whole tree
+        decoded at load (``packed=False``).  ``drop_map`` realizes a tier by
+        plane truncation; ``tier_drop_map`` stamps per-tier drop vectors on
+        the packed leaves instead.  Returns (params, n_packed)."""
         from repro_torch.models.base import resolve_device
-        from repro_torch.quant.store import serve_tree, tree_from_wire
+        from repro_torch.quant.store import dense_tree, serve_tree, tree_from_wire, truncate_tree
 
-        if not packed:
-            raise NotImplementedError(
-                "the dense decode-at-load layout (packed=False) is not ported yet: "
-                "ROADMAP Queue 1, item 0")
         store = tree_from_wire(wire_tree, resolve_device(device))
-        return serve_tree(store, self.param_descs(), drop_map=drop_map,
-                          tier_drop_map=tier_drop_map)
+        descs = self.param_descs()
+        if packed:
+            return serve_tree(store, descs, drop_map=drop_map, tier_drop_map=tier_drop_map)
+        if tier_drop_map:
+            raise ValueError("per-request tier vectors need packed serving (the masks "
+                             "apply inside the kernels)")
+        if drop_map:
+            store = truncate_tree(store, drop_map)
+        return dense_tree(store, like=descs), 0

@@ -11,9 +11,9 @@ The training forward (:func:`attention`, :func:`next_token_loss`) is
 plain tensor code that autograd differentiates; the JAX package has no
 backward kernels either.
 
-Not ported yet: the sliding-window ring buffer and ``verify_attention``
-(ROADMAP Queue 1, item 0), cross attention and MoE (items 8 and 10).  A
-windowed config raises rather than being served or trained wrong.
+Not ported yet: the sliding-window ring buffer and MoE (ROADMAP Queue 1,
+item 8) and cross attention (item 10).  A windowed config raises rather
+than being served or trained wrong.
 """
 from __future__ import annotations
 
@@ -159,7 +159,7 @@ def _no_window(window):
     if window is not None:
         raise NotImplementedError(
             "sliding-window attention (the SWA ring buffer) is not ported yet: "
-            "ROADMAP Queue 1, item 0")
+            "ROADMAP Queue 1, item 8")
 
 
 def attention(p: dict, x: torch.Tensor, *, positions: torch.Tensor | None = None,
@@ -242,6 +242,62 @@ def prefill_attention(p: dict, x: torch.Tensor, cache: KVCache, *,
     v[:, :s] = v_new.to(v.dtype)
     pos = torch.full((b,), s, dtype=torch.int32, device=x.device)
     return y, KVCache(k=k, v=v, pos=pos, pad=pad)
+
+
+def verify_attention(p: dict, x: torch.Tensor, cache: KVCache, *, start: torch.Tensor,
+                     wlen: torch.Tensor, theta: float = 10000.0, use_rope: bool = True,
+                     tiers: torch.Tensor | None = None,
+                     demand: int | None = None) -> tuple[torch.Tensor, KVCache]:
+    """Multi-position decode for self-speculative verify: x (B, W, d) is a
+    per-slot window (the last emitted token, then the drafts) fed at cache
+    indices ``start + j``.
+
+    The window's k/v overwrite cache entries ``[start, start + wlen)`` of
+    each lane IN PLACE (replacing the draft-tier KV the draft ticks wrote)
+    before attention runs, and window query j attends over
+    ``pad <= idx <= start + j``: the entries a sequential decode of token j
+    would see, through the decode step's own shapes (:func:`per_position`).
+    Lanes with ``wlen == 0`` are untouched, ``pos`` included; their output
+    is garbage the caller discards.  Written lanes get
+    ``pos = start + wlen``; the caller rolls it back to the accepted
+    prefix, and rejected entries stay in the cache, masked."""
+    b, w, _ = x.shape
+    t = cache.k.shape[1]
+    ar_w = torch.arange(w, dtype=torch.int32, device=x.device)
+    positions = (start[:, None] + ar_w[None, :] - cache.pad[:, None]) if use_rope else None
+    q, k_new, v_new = _project_qkv(p, x, positions, theta, tiers, demand)
+
+    # entry idx of lane b takes window slot idx - start[b] when that slot
+    # exists, else keeps its value: one elementwise select, no scatter
+    idx = torch.arange(t, dtype=torch.int32, device=x.device)[None, :]  # (1, T)
+    rel = idx - start[:, None]                                          # (B, T)
+    inwin = ((rel >= 0) & (rel < wlen[:, None]))[:, :, None, None]
+    relc = torch.clamp(rel, 0, w - 1).to(torch.int64)[:, :, None, None]
+    k, v = cache.k, cache.v
+    for dst, new in ((k, k_new), (v, v_new)):
+        rows = torch.gather(new.to(dst.dtype), 1, relc.expand(-1, -1, *new.shape[2:]))
+        dst.copy_(torch.where(inwin, rows, dst))
+
+    qpos = start[:, None] + ar_w[None, :]  # (B, W)
+    valid = (idx[:, None, :] <= qpos[:, :, None]) & (idx[:, None, :] >= cache.pad[:, None, None])
+    kq, vq = k.to(q.dtype), v.to(q.dtype)
+    y = torch.cat([_out_proj(p, _gqa_scores_apply(q[:, j:j + 1].contiguous(), kq, vq,
+                                                  valid[:, j, None, None, None, :]), x)
+                   for j in range(w)], dim=1)
+    pos = torch.where(wlen > 0, start + wlen, cache.pos).to(torch.int32)
+    return y, KVCache(k=k, v=v, pos=pos, pad=cache.pad)
+
+
+def per_position(fn, x: torch.Tensor) -> torch.Tensor:
+    """``fn`` over each position (B, 1, ...) of x (B, W, ...), concatenated.
+
+    The verify pass runs its reductions and dense products this way (the
+    norms here, the attention and ``wo`` in :func:`verify_attention`): each
+    call then has the shapes of a decode step, so the library picks the
+    same reduction order and a verified row equals the decoded one bit for
+    bit.  Only the packed matmuls run on the whole window, where the
+    kernels' own plan keeps each row's order (``kernels/qsq.py``)."""
+    return torch.cat([fn(x[:, j:j + 1].contiguous()) for j in range(x.shape[1])], dim=1)
 
 
 # --------------------------------------------------------------------------

@@ -152,6 +152,39 @@ def lm_prefill(params: dict, cfg: ArchConfig, cache: LMCache, tokens: torch.Tens
     return LMCache(kv=kv), logits[:, 0]
 
 
+def lm_verify(params: dict, cfg: ArchConfig, cache: LMCache, tokens: torch.Tensor,
+              start: torch.Tensor, wlen: torch.Tensor, spec: torch.Tensor,
+              tiers: torch.Tensor | None = None,
+              demand: int | None = None) -> tuple[torch.Tensor, LMCache]:
+    """Batched multi-position forward for self-speculative verify: tokens
+    (B, W) windows land at cache indices ``[start, start + wlen)`` of each
+    lane (in place, over the draft-tier KV), at the lane's verify tier, and
+    logits (B, W, vocab) f32 come back for every window position.  The
+    packed matmuls run on the whole window (M = B x W), the norms and the
+    attention position by position (``layers.per_position``), so every row
+    is a decode step's, bit for bit.  ``spec`` marks the speculating lanes
+    (it gates MoE capacity in the JAX package; the dense family does not
+    read it)."""
+    del spec
+    if cfg.window is not None:
+        raise ValueError("speculative verify requires a full-length KV cache")
+    x = L.embed(params["embed"], tokens, cfg.dtype)
+    kv = cache.kv
+    pos = []
+    for i in range(cfg.n_layers):
+        bp = layer_params(params["blocks"], i)
+        y = L.per_position(lambda r, s=bp["ln1"]: L.rmsnorm(r, s), x)
+        h, c2 = L.verify_attention(bp["attn"], y, _layer_cache(kv, i), start=start, wlen=wlen,
+                                   theta=cfg.rope_theta, tiers=tiers, demand=demand)
+        x = x + h
+        y = L.per_position(lambda r, s=bp["ln2"]: L.rmsnorm(r, s), x)
+        x = x + L.mlp(bp["mlp"], y, tiers=tiers, demand=demand)
+        pos.append(c2.pos)
+    x = L.per_position(lambda r: L.rmsnorm(r, params["final_norm"]), x)
+    new_kv = L.KVCache(k=kv.k, v=kv.v, pos=torch.stack(pos), pad=kv.pad)
+    return L.lm_head(params["embed"], x, tiers=tiers, demand=demand), LMCache(kv=new_kv)
+
+
 def lm_cache_insert_slot(live: LMCache, one: LMCache, slot: int) -> LMCache:
     """Admit a request: write a prefilled single-slot cache into lane
     ``slot`` of the live multi-slot cache, in place (batch is axis 1 of

@@ -5,11 +5,6 @@ The npz layout is the JAX package's: the flat wire keys (``jax``'s
 keystr form, e.g. ``['blocks']['attn']['wq']['packed']``) plus one
 ``__edge_meta__`` JSON entry (arch config, tier spec, sensitivity ranking,
 per-plane CRCs).  Both packages load each other's files.
-
-Not ported yet (ROADMAP Queue 1, item 0): ``dense_params``, the dense
-decode-at-load layout (``packed=False``) and the ``budgeted_policy`` fold
-of a calibration ranking (``compress(sensitivity=...)`` only orders the
-tiers here).
 """
 from __future__ import annotations
 
@@ -26,16 +21,19 @@ import torch
 
 from repro_torch.configs.base import ArchConfig, HybridConfig, MoEConfig
 from repro_torch.core import codec
-from repro_torch.core.policy import QuantPolicy
+from repro_torch.core.policy import QuantPolicy, budgeted_policy
 from repro_torch.core.qsq import QSQConfig
 from repro_torch.quant.store import (
     QSQWeight,
+    dense_tree,
     is_store,
     is_wire_leaf,
     packable_leaf,
     plane_mask_for_drop,
     quantize_tree,
+    tree_from_wire,
     tree_to_wire,
+    truncate_tree,
 )
 from repro_torch.tree import keystr, path_str, tree_leaves_with_path
 
@@ -279,6 +277,20 @@ class EdgeArtifact:
         return quality, ceiling
 
     # -- realization ------------------------------------------------------
+    def tree(self, device="cpu"):
+        """Decode the wire to a WeightStore tree (QSQWeight leaves) on ``device``."""
+        from repro_torch.models.base import resolve_device
+
+        return tree_from_wire(self.wire, resolve_device(device))
+
+    def dense_params(self, quality: str = "hi", like=None, device="cuda"):
+        """Fully decoded param tree at a tier on ``device`` (``like``: a
+        matching tree giving dtypes).  Plane-damaged artifacts clamp
+        ``quality`` to the tier ceiling."""
+        if self.plane_damage:
+            quality, _ = self.degraded_quality(quality)
+        return dense_tree(truncate_tree(self.tree(device), self.drop_map(quality)), like=like)
+
     def serve_params(self, quality: str = "hi", packed: bool = True,
                      per_request: bool = False, device="cuda"):
         """(params, n_packed) at a tier on ``device`` — matmul weights stay
@@ -399,14 +411,19 @@ def compress(model, params, policy: QuantPolicy | None = None,
              device="cuda") -> EdgeArtifact:
     """Quantize a model once on ``device`` and return the EdgeArtifact.
 
-    ``sensitivity`` (most sensitive first) orders the tier truncation;
-    without it the data-free proxy ranking does.
+    ``sensitivity`` is an optional calibration ranking from
+    ``core.policy.sensitivity_rank`` (most sensitive first).  When given it
+    is folded into the policy as per-layer phi overrides
+    (``budgeted_policy``) and it orders the tier truncation; without it the
+    data-free proxy ranking orders the tiers.
     """
     from repro_torch.models.base import resolve_device
     from repro_torch.tree import tree_map
 
     device = resolve_device(device)
     policy = policy if policy is not None else default_policy()
+    if sensitivity:
+        policy = budgeted_policy(list(sensitivity), policy)
     params = tree_map(lambda a: torch.as_tensor(a).to(device), params)
     descs = model.param_descs() if model is not None else None
     store = quantize_tree(params, policy, descs)

@@ -32,7 +32,7 @@ from repro_torch.core.qsq import (
     quantize,
     smcodes_to_levels,
 )
-from repro_torch.tree import path_str, tree_map, tree_map_with_path
+from repro_torch.tree import path_str, tree_leaves, tree_map, tree_map_with_path
 
 # Logical axes a 2-D-view matmul contracts over, and path fragments never
 # served packed (attention wo is excluded by the stack-prefix rule).
@@ -132,6 +132,17 @@ class QSQWeight(QSQTensor, WeightStore):
         if self.conv_shape is not None:
             w = _conv_unview(w, self.conv_shape)
         return w.to(dtype)
+
+    def truncate(self, drop: int) -> "QSQWeight":
+        """Level-space LSB plane truncation: each level through its
+        sign-magnitude code with the ``drop`` lowest bits zeroed — the same
+        levels as ``pack().truncate(drop)``, for any grouping.  Scales are
+        kept; nothing is re-quantized."""
+        if drop == 0:
+            return self
+        mask = _trunc_code_mask(drop)
+        return dataclasses.replace(
+            self, levels=smcodes_to_levels(levels_to_smcodes(self.levels) & mask))
 
     def pack(self, sign_mag: bool = True) -> "PackedWeight":
         """-> bit-plane form (*stack, K//32, 3, *rest); K must be 32-aligned."""
@@ -364,10 +375,58 @@ def serve_tree(tree, descs, dtype=None, drop_map=None, tier_drop_map=None):
                 pw = dataclasses.replace(
                     pw, tier_drops=tuple(int(d) for d in tier_drop_map[p]))
             return pw
+        if p in drop_map and isinstance(leaf, QSQWeight):
+            leaf = leaf.truncate(drop_map[p])
         return leaf.as_dense(dtype if dtype is not None else desc.dtype)
 
     out = tree_map_with_path(_leaf, tree, descs, is_leaf=is_store)
     return out, n_packed
+
+
+def truncate_tree(tree, drop_map: dict):
+    """Per-path LSB plane truncation of the QSQ/packed leaves ``drop_map``
+    names ('/'-joined path -> planes to drop, from full quality)."""
+
+    def _leaf(path, leaf):
+        drop = drop_map.get(path_str(path), 0)
+        if drop and isinstance(leaf, (QSQWeight, PackedWeight)):
+            return leaf.truncate(drop)
+        return leaf
+
+    return tree_map_with_path(_leaf, tree, is_leaf=is_store)
+
+
+def dense_tree(tree, like=None):
+    """Decode every WeightStore leaf to dense; ``like`` (a matching tree of
+    tensors or ParamDescs) gives the target dtypes, f32 otherwise."""
+
+    def _leaf(leaf, ref=None):
+        if not is_store(leaf):
+            return leaf
+        return leaf.as_dense(ref.dtype if ref is not None else torch.float32)
+
+    if like is None:
+        return tree_map(_leaf, tree, is_leaf=is_store)
+    return tree_map(_leaf, tree, like, is_leaf=is_store)
+
+
+def tree_bits_report(tree) -> dict:
+    """Eq. 11/12 accounting over a mixed-representation tree (stored bits
+    against the tree held as f32)."""
+    total_bits = dense_bits = n_store = n_total = 0
+    for leaf in tree_leaves(tree, is_leaf=is_store):
+        n_total += 1
+        if is_store(leaf):
+            n_store += 1
+            total_bits += leaf.nbits()
+            dense_bits += int(8 * 4 * np.prod(leaf.shape))
+        else:
+            b = int(8 * leaf.numel() * leaf.element_size())
+            total_bits += b
+            dense_bits += b
+    return {"bits": total_bits, "dense_bits": dense_bits,
+            "savings": 1.0 - total_bits / max(dense_bits, 1),
+            "n_store_leaves": n_store, "n_leaves": n_total}
 
 
 # --------------------------------------------------------------------------

@@ -10,11 +10,22 @@ greedy decode over all lanes, with per-slot tiers as per-row plane masks
 and the batch's minimum live tier as the plane-demand floor.  Each step
 syncs the host once, on the (B,) next tokens.
 
+``submit(speculate=SpecConfig(draft_tier, k))`` turns on self-speculative
+decoding: k draft ticks through the same continuous-decode step with the
+speculating lanes at their draft tier, then ONE verify pass at their
+serving tier that accepts the longest agreeing prefix and rolls ``pos``
+back over the rest; the tokens equal plain decode at the serving tier.
+
+``generate()`` submits and drains on the continuous stream when the
+engine is greedy and ``continuous``; otherwise (``temperature > 0`` or
+``ServeConfig(continuous=False)``) it takes the static two-program path:
+one prefill of every slot, then one decode loop with the next token fed
+back on the device and one host sync at the end.  Sampling draws from a
+``torch.Generator`` seeded from ``seed``.
+
 The cost clock, deadlines, cancellation, ``QualityShed`` admission,
 ``stream_stats`` and the analytic byte meter follow the JAX engine
-exactly.  Not ported yet (ROADMAP Queue 1, item 0): speculative decoding
-(``submit(speculate=...)``) and the static/sampling path
-(``ServeConfig(continuous=False)`` or ``temperature > 0``).
+exactly.
 """
 from __future__ import annotations
 
@@ -24,29 +35,36 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from repro_torch.kernels import dispatch
+from repro_torch.kernels.qsq import SAME_PLAN_ROWS
 from repro_torch.models.base import init_params, resolve_device
 from repro_torch.serve.admission import ADMIT, REJECT, SHED, AdmissionPolicy, LoadView
 from repro_torch.serve.scheduler import (
     FinishReason,
+    Request,
     RequestStatus,
     Scheduler,
     SpecConfig,
     SubmitRejected,
     plane_demand,
 )
-from repro_torch.train.step import make_admit_step, make_cont_decode_step
+from repro_torch.train.step import (
+    make_admit_step,
+    make_cache_prefill_step,
+    make_cont_decode_step,
+    make_decode_loop,
+    make_sample_decode_loop,
+    make_verify_step,
+    sample_tokens,
+)
 from repro_torch.tree import tree_leaves
-
-_SPEC_TODO = "speculative decoding is not ported yet: ROADMAP Queue 1, item 0"
-_STATIC_TODO = ("the static two-program path (continuous=False, temperature > 0) is "
-                "not ported yet: ROADMAP Queue 1, item 0")
 
 
 @dataclasses.dataclass(frozen=True)
 class ServeConfig:
     batch_slots: int = 8
     max_len: int = 256    # continuous sessions: KV cache length per slot
-    temperature: float = 0.0  # 0 => greedy; > 0 => sampling (not ported)
+    temperature: float = 0.0  # 0 => greedy; > 0 => sampling (the static path)
     packed: bool = True  # keep matmul weights in bit-plane form
     continuous: bool = True
     max_prompt: int = 64  # continuous sessions: fixed prefill width
@@ -64,6 +82,10 @@ class StepInfo:
     live: int
     demand: int | None
     cost: float
+    # speculative round: draft-tier tokens proposed this step and how many
+    # of them the verify pass accepted (0/0 for plain decode steps)
+    drafted: int = 0
+    accepted: int = 0
 
 
 class _Session:
@@ -91,6 +113,11 @@ class _Session:
         self.plane_words_read = 0
         self.plane_words_full = 0
         self.tokens_emitted = 0
+        # the same words by serving phase ("" plain, "draft", "verify"):
+        # label -> [words read, words full]
+        self.phase_words: dict[str, list[int]] = {}
+        self.drafted = 0
+        self.accepted = 0
 
 
 class ServeEngine:
@@ -106,6 +133,10 @@ class ServeEngine:
         self.tier_ceiling: int = 0
         self._cont_step = make_cont_decode_step(model)
         self._admit = make_admit_step(model)
+        self._verify = make_verify_step(model)
+        self._prefill = make_cache_prefill_step(model)
+        self._decode_loop = make_decode_loop(model)
+        self._sample_loop = make_sample_decode_loop(model)
         self._session: _Session | None = None
         self._plane_words_cache: dict[int, tuple[int, int]] = {}
 
@@ -159,8 +190,10 @@ class ServeEngine:
 
     # -- continuous batching ------------------------------------------------
     def _require_continuous(self):
-        if self.cfg.temperature > 0 or not self.cfg.continuous:
-            raise NotImplementedError(_STATIC_TODO)
+        if self.cfg.temperature > 0:
+            raise ValueError("the continuous scheduler is greedy-only; build the engine "
+                             "with temperature=0 (generate() still samples via the "
+                             "static path)")
 
     def _ensure_session(self) -> _Session:
         if self._session is None:
@@ -184,12 +217,14 @@ class ServeEngine:
     def submit(self, prompt: Sequence[int], max_new: int = 32, quality: str | None = None,
                deadline: float | None = None, speculate: SpecConfig | None = None) -> int:
         """Enqueue one prompt on the continuous stream; returns a request id
-        (see the JAX engine's ``submit`` for the full contract)."""
-        if speculate is not None:
-            raise NotImplementedError(_SPEC_TODO)
+        (see the JAX engine's ``submit`` for the full contract).
+        ``speculate`` drafts the request at a cheaper tier and verifies each
+        window at its serving tier; its tokens equal plain decode."""
         self._require_continuous()
         quality = self._resolve_quality(quality)
         requested = quality
+        if speculate is not None:
+            self._check_speculate(speculate, quality)
         s = self._ensure_session()
         if len(prompt) > s.prefill_len:
             raise SubmitRejected(
@@ -222,7 +257,27 @@ class ServeEngine:
                 raise ValueError(f"admission policy returned unknown action {d.action!r}")
         abs_deadline = None if deadline is None else s.now + float(deadline)
         return s.sched.submit(prompt, max_new, arrival=s.step_idx, quality=quality,
-                              requested=requested, deadline=abs_deadline, arrival_t=s.now)
+                              requested=requested, deadline=abs_deadline, arrival_t=s.now,
+                              speculate=speculate)
+
+    def _check_speculate(self, sc: SpecConfig, quality: str | None) -> None:
+        """Reject speculation configs that could never save a weight read."""
+        if not self.per_request_quality:
+            raise SubmitRejected(
+                "speculative decoding drafts at a cheaper tier of the same packed "
+                "weights, which needs a per-request-quality engine (EdgeArtifact.engine)")
+        if self.model.cfg.window is not None:
+            raise SubmitRejected("speculative decoding needs a full-length KV cache")
+        if sc.k < 1:
+            raise SubmitRejected(f"speculate.k must be >= 1 drafted tokens, got {sc.k}")
+        if sc.draft_tier not in self.tier_names:
+            raise SubmitRejected(f"unknown draft tier {sc.draft_tier!r}; this engine has "
+                                 f"{self.tier_names}")
+        if self.tier_names.index(sc.draft_tier) <= self._tier_index(quality):
+            raise SubmitRejected(
+                f"draft tier {sc.draft_tier!r} is not below serving tier {quality!r} on "
+                f"the ladder {self.tier_names}; drafting there could never save weight "
+                f"reads")
 
     def cancel(self, rid: int) -> RequestStatus:
         """Caller-initiated abort (queued: removed; live: evicted)."""
@@ -262,8 +317,8 @@ class ServeEngine:
         return tuple(self._dispatch_cost(t) for t in range(n))
 
     def stream_stats(self) -> dict:
-        """Demand-streaming meter of the current stream (bytes per token);
-        the speculation keys are the JAX engine's and stay 0 here."""
+        """Demand-streaming meter of the current stream: bytes per emitted
+        (for speculative streams: accepted) token, and the draft counters."""
         s = self._session
         if s is None or s.tokens_emitted == 0:
             return {"tokens": 0, "bytes_read": 0, "bytes_full": 0,
@@ -277,13 +332,19 @@ class ServeEngine:
             "bytes_full": bytes_full,
             "bytes_per_token": bytes_read / s.tokens_emitted,
             "read_frac": bytes_read / bytes_full if bytes_full else 1.0,
-            "drafted": 0, "accepted": 0, "acceptance_rate": 0.0,
+            "drafted": s.drafted,
+            "accepted": s.accepted,
+            "acceptance_rate": s.accepted / s.drafted if s.drafted else 0.0,
         }
 
-    def _meter(self, s: _Session, demand: int) -> float:
+    def _meter(self, s: _Session, demand: int, phase: str = "") -> float:
+        """Charge one forward at ``demand`` to the byte meter; returns its cost."""
         r, f = self._forward_plane_words(demand)
         s.plane_words_read += r
         s.plane_words_full += f
+        words = s.phase_words.setdefault(phase, [0, 0])
+        words[0] += r
+        words[1] += f
         return self._dispatch_cost(demand)
 
     def step(self) -> StepInfo:
@@ -324,7 +385,28 @@ class ServeEngine:
                 s.active[slot] = 1
         live = s.sched.decoding_slots()
         demand_used: int | None = None
-        if live:
+        drafted_n = accepted_n = 0
+        # speculating slots this round: slot -> (k_eff, draft tier index); k
+        # is clamped so a round never drafts past max_new (the verify's bonus
+        # token is the +1) and the verify window keeps at most SAME_PLAN_ROWS
+        # rows (so each verify row is a decode row bit for bit on the card),
+        # and a request downgraded to or below its draft tier decodes plainly
+        k_cap = SAME_PLAN_ROWS // s.sched.n_slots - 1
+        spec: dict[int, tuple[int, int]] = {}
+        for slot in live:
+            req = s.sched.slot_req[slot]
+            if req.speculate is None:
+                continue
+            didx = self.tier_names.index(req.speculate.draft_tier)
+            if didx <= int(s.tiers[slot]):
+                continue
+            k_eff = min(req.speculate.k, req.max_new - len(req.out) - 1, k_cap)
+            if k_eff >= 1:
+                spec[slot] = (k_eff, didx)
+        if spec:
+            demand_used, rcost, drafted_n, accepted_n = self._spec_round(s, spec, finished)
+            cost += rcost
+        elif live:
             demand = plane_demand(s.tiers[slot] for slot in live)
             demand_used = demand
             nxt, s.cache = self._cont_step(self.params, s.cache, self._t(s.cur),
@@ -343,7 +425,101 @@ class ServeEngine:
         s.now += cost
         return StepInfo(admitted=tuple(admitted), finished=tuple(finished),
                         timed_out=tuple(timed_out), live=len(live),
-                        demand=demand_used, cost=cost)
+                        demand=demand_used, cost=cost, drafted=drafted_n, accepted=accepted_n)
+
+    def _spec_round(self, s: _Session, spec: dict[int, tuple[int, int]],
+                    finished: list[int]) -> tuple[int, float, int, int]:
+        """One self-speculative draft/verify round over the live lanes (the
+        JAX engine's ``_spec_round``).
+
+        DRAFT: k ticks of the continuous-decode step with the speculating
+        lanes' tiers set to their draft tier, so the demand floor streams
+        only the draft planes; the other live lanes decode normally in the
+        same calls and their tokens are recorded each tick.  A lane whose
+        k_eff is shorter than the round's goes inactive early.  One host
+        sync a tick, on the (B,) tokens.
+
+        VERIFY: ONE pass at the lanes' serving tiers scores every window
+        position, overwriting the draft-tier KV in place, and accepts each
+        lane's longest agreeing prefix on the device; the lane emits the
+        accepted drafts plus the bonus token, every one what plain decode
+        would have produced.  One host sync, on (B, W) tokens and (B,)
+        counts together.
+
+        The cost clock charges each draft tick at its demand floor and the
+        verify as ONE serving-tier dispatch.  Returns (verify demand, round
+        cost, drafted, accepted)."""
+        k_round = max(k for k, _ in spec.values())
+        # every live lane holds prefill_len + emitted - 1 cache entries
+        start = {slot: s.prefill_len + len(s.sched.slot_req[slot].out) - 1 for slot in spec}
+        anchor = {slot: int(s.cur[slot, 0]) for slot in spec}
+        drafts: dict[int, list[int]] = {slot: [] for slot in spec}
+        cost = 0.0
+        for j in range(k_round):
+            draft_active = s.active.copy()
+            draft_tiers = s.tiers.copy()
+            for slot, (k_eff, didx) in spec.items():
+                draft_active[slot] = 1 if j < k_eff else 0
+                draft_tiers[slot] = didx
+            live_now = [slot for slot in range(s.sched.n_slots) if draft_active[slot]]
+            if not live_now:
+                break  # every plain lane finished and every k_eff ran out
+            demand = plane_demand(int(draft_tiers[slot]) for slot in live_now)
+            with dispatch.dispatch_phase("draft"):
+                nxt, s.cache = self._cont_step(self.params, s.cache, self._t(s.cur),
+                                               self._t(draft_active), self._t(draft_tiers),
+                                               demand)
+            cost += self._meter(s, demand, "draft")
+            nxt = nxt.cpu().numpy()  # the tick's one host sync
+            for slot in live_now:
+                s.cur[slot, 0] = int(nxt[slot])
+                if slot in spec:
+                    drafts[slot].append(int(nxt[slot]))  # proposed, not emitted
+                    continue
+                s.tokens_emitted += 1
+                rid = s.sched.slot_req[slot].rid
+                if s.sched.record(slot, int(nxt[slot]), s.step_idx, now=s.now):
+                    s.sched.evict(slot)
+                    s.active[slot] = 0
+                    finished.append(rid)
+        n = s.sched.n_slots
+        window = np.zeros((n, k_round + 1), np.int32)
+        wlen = np.zeros((n,), np.int32)
+        smask = np.zeros((n,), np.int32)
+        starts = np.zeros((n,), np.int32)
+        for slot, (k_eff, _) in spec.items():
+            window[slot, 0] = anchor[slot]
+            window[slot, 1:1 + k_eff] = drafts[slot]
+            wlen[slot] = k_eff + 1
+            smask[slot] = 1
+            starts[slot] = start[slot]
+        vdemand = plane_demand(int(s.tiers[slot]) for slot in spec)
+        with dispatch.dispatch_phase("verify"):
+            toks, acc, s.cache = self._verify(self.params, s.cache, self._t(window),
+                                              self._t(starts), self._t(wlen), self._t(smask),
+                                              self._t(s.tiers), vdemand)
+        cost += self._meter(s, vdemand, "verify")
+        out = torch.cat([toks, acc[:, None]], dim=1).cpu().numpy()  # the round's last sync
+        drafted_n = accepted_n = 0
+        for slot, (k_eff, _) in spec.items():
+            a = int(out[slot, -1])
+            req = s.sched.slot_req[slot]
+            req.drafted += k_eff
+            req.accepted += a
+            drafted_n += k_eff
+            accepted_n += a
+            s.cur[slot, 0] = int(out[slot, a])  # the bonus token is the new cur
+            s.tokens_emitted += a + 1
+            done = False
+            for tok in out[slot, :a + 1]:
+                done = s.sched.record(slot, int(tok), s.step_idx, now=s.now)
+            if done:  # a + 1 <= remaining, so only the last token can finish
+                s.sched.evict(slot)
+                s.active[slot] = 0
+                finished.append(req.rid)
+        s.drafted += drafted_n
+        s.accepted += accepted_n
+        return vdemand, cost, drafted_n, accepted_n
 
     def poll(self, rid: int | None = None):
         """Structured request status; ``poll()`` hands out every request that
@@ -358,6 +534,21 @@ class ServeEngine:
     @property
     def has_work(self) -> bool:
         return self._session is not None and self._session.sched.has_work
+
+    @property
+    def step_count(self) -> int:
+        """step() iterations the current stream has run."""
+        return 0 if self._session is None else self._session.step_idx
+
+    @property
+    def queue_depth(self) -> int:
+        """Requests waiting for a slot."""
+        return 0 if self._session is None else len(self._session.sched.queue)
+
+    @property
+    def completed_requests(self) -> dict[int, Request]:
+        """Every finished Request of the current stream (rid -> Request)."""
+        return {} if self._session is None else dict(self._session.sched.completed)
 
     @property
     def now(self) -> float:
@@ -397,8 +588,11 @@ class ServeEngine:
     # -- generation ----------------------------------------------------------
     def generate(self, prompts: Sequence[Sequence[int]], max_new: int = 32,
                  seed: int = 0, qualities=None):
-        """Greedy decode of a batch of prompts through the continuous
-        scheduler (submit all, drain).  Returns lists of ids."""
+        """Decode a batch of prompts; returns lists of ids.  Greedy
+        continuous engines submit all and drain; ``temperature > 0`` or
+        ``continuous=False`` takes the static path (same seed and prompts,
+        same tokens).  ``qualities`` (continuous path only) gives each
+        prompt its own tier."""
         if len(prompts) == 0:
             return []
         if any(len(p) == 0 for p in prompts):
@@ -413,7 +607,16 @@ class ServeEngine:
             qualities = [qualities] * b
         if qualities is not None and len(qualities) != b:
             raise ValueError(f"{len(qualities)} qualities for {b} prompts")
-        self._require_continuous()
+        if self.cfg.continuous and self.cfg.temperature == 0:
+            return self._generate_continuous(prompts, max_new, qualities)
+        if qualities is not None:
+            raise ValueError("per-request qualities need the continuous scheduler path "
+                             "(greedy, ServeConfig(continuous=True)); use set_quality() "
+                             "to dial this engine as a whole")
+        return self._generate_static(prompts, max_new, seed)
+
+    def _generate_continuous(self, prompts, max_new: int, qualities=None):
+        """Submit-all/drain on a throwaway session sized to this batch."""
         maxp = max(len(p) for p in prompts)
         saved = self._session
         self._session = _Session(self.model, self.cfg.batch_slots, prefill_len=maxp,
@@ -426,3 +629,28 @@ class ServeEngine:
             return [done[r].tokens for r in rids]
         finally:
             self._session = saved
+
+    def _generate_static(self, prompts, max_new: int, seed: int):
+        """The one-static-batch path: every slot prefills at once (M = slots x
+        longest prompt) and decodes in lockstep; one host sync at the end."""
+        b = len(prompts)
+        slots = self.cfg.batch_slots
+        maxp = max(len(p) for p in prompts)
+        cache = init_params(self.model.cache_descs(slots, maxp + max_new + 1),
+                            device=self.device)
+        toks = np.zeros((slots, maxp), np.int32)
+        lens = np.zeros((slots,), np.int32)
+        for i, p in enumerate(prompts):
+            toks[i, maxp - len(p):] = p  # left-pad
+            lens[i] = len(p)
+        cache, logits = self._prefill(self.params, cache, self._t(toks), self._t(lens))
+        temp = self.cfg.temperature
+        if temp > 0:
+            gen = torch.Generator(device=self.device).manual_seed(int(seed))
+            first = sample_tokens(logits, temp, gen)[:, None]
+            out, _ = self._sample_loop(self.params, cache, first, max_new, gen, temp)
+        else:
+            first = torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
+            out, _ = self._decode_loop(self.params, cache, first, max_new)
+        out = out.cpu().numpy()  # (max_new, slots): the generation's one host sync
+        return [out[:, i].tolist() for i in range(b)]

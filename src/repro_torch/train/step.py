@@ -108,3 +108,78 @@ def make_cont_decode_step(model) -> Callable:
         return torch.where(active > 0, nxt, cur[:, 0]), cache
 
     return cont_step
+
+
+def make_verify_step(model) -> Callable:
+    """(params, cache, window (B, W), start (B,), wlen (B,), spec (B,),
+    tiers (B,), demand) -> (tokens (B, W), accepted (B,), cache).
+
+    The verify half of self-speculative decoding, acceptance computed on
+    the device: row j of ``tokens`` is the verify tier's greedy choice
+    after window position j, and ``accepted`` the longest prefix of drafts
+    (``window[:, 1:]``) that match it, so a lane emits
+    ``tokens[:accepted + 1]``.  The KV rollback is one data change: each
+    speculating lane's ``pos`` becomes ``start + accepted + 1``, and the
+    rejected entries stay in the cache, masked until overwritten.  Lanes
+    with ``wlen == 0`` pass through untouched."""
+
+    def verify(params, cache, window, start, wlen, spec, tiers, demand=0):
+        logits, cache = model.verify(params, cache, {
+            "tokens": window, "start": start, "wlen": wlen, "spec": spec,
+            "tiers": tiers, "demand": demand})
+        toks = torch.argmax(logits, dim=-1).to(torch.int32)  # (B, W)
+        w = window.shape[1]
+        # draft i+1 is accepted iff it matches the verify choice at window
+        # position i and every earlier draft was accepted too
+        eq = (toks[:, : w - 1] == window[:, 1:]) & (
+            torch.arange(w - 1, device=window.device)[None, :] < (wlen - 1)[:, None])
+        accepted = torch.sum(torch.cumprod(eq.to(torch.int32), dim=1), dim=1).to(torch.int32)
+        kv = cache.kv
+        pos = torch.where(spec[None, :] > 0, (start + accepted + 1)[None, :], kv.pos)
+        return toks, accepted, type(cache)(kv=kv._replace(pos=pos.to(torch.int32)))
+
+    return verify
+
+
+def make_decode_loop(model) -> Callable:
+    """(params, cache, first (B, 1), steps) -> (tokens (steps, B), cache).
+
+    Greedy multi-token decode with the next token fed back on the device:
+    the host syncs once, on the returned block.  ``first`` is the token
+    chosen from the prefill logits; row t is the token fed at step t (so
+    row 0 == first)."""
+
+    def decode_loop(params, cache, first, steps: int):
+        cur, rows = first, []
+        for _ in range(steps):
+            rows.append(cur[:, 0])
+            logits, cache = model.decode(params, cache, {"tokens": cur})
+            cur = torch.argmax(logits[:, -1, :], dim=-1).to(torch.int32)[:, None]
+        return torch.stack(rows), cache
+
+    return decode_loop
+
+
+def sample_tokens(logits: torch.Tensor, temperature: float,
+                  generator: torch.Generator) -> torch.Tensor:
+    """One draw per row from ``softmax(logits / temperature)`` (Gumbel-max,
+    as ``jax.random.categorical`` draws) -> (rows,) int32."""
+    u = torch.rand(logits.shape, generator=generator, device=logits.device)
+    return torch.argmax(logits / temperature - torch.log(-torch.log(u)), dim=-1).to(torch.int32)
+
+
+def make_sample_decode_loop(model) -> Callable:
+    """(params, cache, first (B, 1), steps, generator, temperature) ->
+    (tokens (steps, B), cache): the temperature-sampled sibling of
+    :func:`make_decode_loop`, each next token drawn by :func:`sample_tokens`
+    from ``generator``; still no host sync inside the loop."""
+
+    def decode_loop(params, cache, first, steps: int, generator, temperature: float):
+        cur, rows = first, []
+        for _ in range(steps):
+            rows.append(cur[:, 0])
+            logits, cache = model.decode(params, cache, {"tokens": cur})
+            cur = sample_tokens(logits[:, -1, :], temperature, generator)[:, None]
+        return torch.stack(rows), cache
+
+    return decode_loop

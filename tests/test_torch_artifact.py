@@ -4,8 +4,9 @@
   port's served tree (``serve_params(per_request=True)``) is bit-exact
   against the JAX one: planes, scales, tier-drop vectors and the leaves
   decoded once at load.
-* Artifacts corrupted with the JAX fault harness (``corrupt_plane_npz``)
-  give the same tier ceiling in both packages, or the same hard
+* Artifacts corrupted with the port's fault harness (``corrupt_plane_npz``
+  of ``repro_torch.serve.faults``, which writes the JAX one's bytes) give
+  the same tier ceiling in both packages, or the same hard
   ``ArtifactIntegrityError``.
 * A port-written artifact loads in the JAX package and serves the same
   greedy tokens there as the port serves.
@@ -27,7 +28,6 @@ from repro import api as japi
 from repro.configs.base import ArchConfig as JArch
 from repro.models.api import Model as JModel
 from repro.quant.store import PackedWeight as JPacked
-from repro.serve.faults import corrupt_plane_npz
 
 CFG = dict(name="smollm-bench", family="dense", n_layers=2, d_model=64, n_heads=4,
            n_kv=2, d_ff=128, vocab=256, remat=False)
@@ -37,8 +37,9 @@ CFG = dict(name="smollm-bench", family="dense", n_layers=2, d_model=64, n_heads=
 def _port():
     """Import the port for this file only (see ``torch_port_scope``)."""
     global tapi, TArch, params_from_numpy, TModel, is_desc, TPacked, path_str, \
-        tree_leaves_with_path, tree_map
+        tree_leaves_with_path, tree_map, corrupt_plane_npz
     with port_modules():
+        from repro_torch.serve.faults import corrupt_plane_npz
         from repro_torch import api as tapi
         from repro_torch.configs.base import ArchConfig as TArch
         from repro_torch.convert import params_from_numpy

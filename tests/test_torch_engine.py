@@ -194,9 +194,18 @@ def test_submit_rejections_match(engines):
 
 
 def test_port_defers_speculation_and_sampling(engines, path):
-    _, teng = engines
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        teng.submit([1, 2], max_new=3, speculate=tapi.SpecConfig(draft_tier="lo", k=2))
+    """Speculation and sampling, once deferred, now run: a speculative
+    request serves the tokens of the JAX engine, and a sampling engine
+    routes ``generate`` to the static path (its submit stays greedy-only)."""
+    jeng, teng = engines
+    out = []
+    for eng, mod in ((teng, tapi), (jeng, japi)):
+        eng.reset_stream()
+        rid = eng.submit([1, 2], max_new=5, speculate=mod.SpecConfig(draft_tier="lo", k=2))
+        out.append(eng.run_until_drained()[rid].tokens)
+    assert out[0] == out[1] and len(out[0]) == 5
     eng = tapi.load(path).engine(device="cpu", temperature=0.7, **ENGINE)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        eng.generate([[1, 2]], max_new=2)
+    toks = eng.generate([[1, 2]], max_new=2)
+    assert len(toks[0]) == 2
+    with pytest.raises(ValueError, match="greedy-only"):
+        eng.submit([1, 2], max_new=2)
