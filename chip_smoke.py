@@ -11,7 +11,9 @@ Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``
    shapes — elementwise within 2*K*2^-24*(|x|@|w|), masked rows
    bit-identical to the unmasked kernel on truncated planes, demand-routed
    bit-identical to full masked — and timed with CUDA events, the masked
-   kernels also at demand_drop = 2 against that case's own bound;
+   kernels also at demand_drop = 2 against that case's own bound; then
+   K1-K4 again on the Table II layout (interleaved planes, offset codes:
+   ``pack_params``' form and the JAX kernels' default) at demand 0;
 3. the main path at full width: ``api.compress`` of smollm-135m (random
    weights from a seeded ``torch.Generator``), ``save``,
    ``api.load(verify=True)``, ``artifact.engine(quality="mid",
@@ -48,9 +50,25 @@ Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``
    K3, and where it leaves the continuous path's tokens (at 30 layers and
    at 2) the continuous top-2 logit gap is at most twice that path's bf16
    error against f32 arithmetic there (a tie); two sampled runs
-   (temperature 0.8) from one seed agree; and at the d64 f32 config the
-   card's speculative and static tokens equal the CPU's, verify logits
-   within 1e-4.
+   (temperature 0.8) from one seed agree; at 16 and 40 slots (verify
+   windows of 80 and 200 rows, run in row blocks of at most 64) verify rows
+   equal decode rows, speculative tokens equal plain decode, every round
+   drafts min(k, max_new - emitted - 1) as the JAX engine does, and the
+   re-read plane bytes are printed; and at the d64 f32 config the card's
+   speculative and static tokens equal the CPU's, verify logits within
+   1e-4;
+9. the paper's pipeline: LeNet (300 steps, 1024 images) and ConvNet4 (150
+   steps, 768) trained on the card on the synthetic images, with
+   deterministic algorithms on so the numbers repeat from run to run; float
+   accuracy, QSQ at phi = 1/2/4 (accuracy, Eq. 11/12 memory savings,
+   zeros), the FC fine-tune after phi = 1, CSD at k = 1/2/3, and
+   ``compress(None)`` -> save -> load -> ``dense_params`` at every tier;
+   the card's quantization of the trained params equals the CPU's (bits
+   reports exactly, scales within rtol 1e-6, codes except at ties);
+10. full-width smollm-135m (random init, seed 0) packed by ``pack_params``
+   and served by ``Model.prefill`` (K3) and ``Model.decode`` (K1) on Table
+   II planes, twice with the same tokens and no plain version; the d64
+   config gives the CPU's tokens and logits within 1e-4.
 
 Any failed check raises, so the script exits non-zero and prints no
 result.  The second-to-last line is the per-kernel JSON summary and the
@@ -153,19 +171,21 @@ def time_ms(torch, fn, flush, runs=25, warmup=3) -> float:
     return statistics.median(times)
 
 
-def operands(torch, m, k, n, gen, x_dtype, min_drop=0):
+def operands(torch, m, k, n, gen, x_dtype, min_drop=0, plane_major=True, group=GROUP):
     from repro_torch.kernels.ref import MASK_VARIANTS
 
-    x = torch.randn((m, k), generator=gen, device="cuda").to(x_dtype)
-    planes = torch.randint(-2**31, 2**31 - 1, (3, k // 32, n), generator=gen,
-                           device="cuda", dtype=torch.int32)
-    scales = torch.rand((k // GROUP, n), generator=gen, device="cuda") * 0.09 + 0.01
-    variants = torch.tensor(MASK_VARIANTS[min_drop:], dtype=torch.int32, device="cuda")
-    pick = torch.randint(0, len(variants), (m,), generator=gen, device="cuda")
+    dev = gen.device
+    x = torch.randn((m, k), generator=gen, device=dev).to(x_dtype)
+    planes = torch.randint(-2**31, 2**31 - 1, (3, k // 32, n) if plane_major else
+                           (k // 32, 3, n), generator=gen, device=dev, dtype=torch.int32)
+    scales = torch.rand((k // group, n), generator=gen, device=dev) * 0.09 + 0.01
+    variants = torch.tensor(MASK_VARIANTS[min_drop:], dtype=torch.int32, device=dev)
+    pick = torch.randint(0, len(variants), (m,), generator=gen, device=dev)
     return x, planes, scales, variants[pick].contiguous()
 
 
-def f32_bound(torch, x, plane_mask, planes, scales, demand):
+def f32_bound(torch, x, plane_mask, planes, scales, demand, sign_mag=True, plane_major=True,
+              group=GROUP):
     """2*K*2^-24*(|x| @ |w|) per output, each row with its own mask's weight."""
     from repro_torch.kernels import ref
 
@@ -173,44 +193,52 @@ def f32_bound(torch, x, plane_mask, planes, scales, demand):
     xs = ref.variant_split(x.float().abs(), plane_mask, demand)
     out = 0
     for i, mask in enumerate(ref.MASK_VARIANTS[demand:]):
-        w = ref.qsq_dequant_ref(planes, scales, GROUP, sign_mag=True, plane_major=True,
-                                n_planes=3 - demand, code_mask=mask).to(x.dtype).float()
+        w = ref.qsq_dequant_ref(planes, scales, group, sign_mag=sign_mag,
+                                plane_major=plane_major, n_planes=3 - demand,
+                                code_mask=mask).to(x.dtype).float()
         out = out + xs[i].double() @ w.abs().double()
     return 2 * k * 2.0**-24 * out
 
 
-def check_kernels(torch, gen, cases=None):
+def check_kernels(torch, gen, cases=None, sign_mag=True, plane_major=True, group=GROUP,
+                  errs=None):
     """Correctness at every shape, dtype and demand; raises on any miss.
     ``cases`` is a list of (kernel name, M); by default each kernel at its
-    phase-2 M."""
+    phase-2 M.  The interleaved layout (``plane_major=False``) is held at
+    demand 0 only: the unmasked kernels refuse a demand floor there.
+    ``errs``, if given, collects each kernel's worst |kernel - plain|."""
     from repro_torch.kernels import qsq, ref
 
     if cases is None:
         cases = [(name, m) for name, (_, m, _, _) in KERNELS.items()]
+    layout = dict(sign_mag=sign_mag, plane_major=plane_major)
     n_checks = 0
     for k, n in SHAPES:
         for x_dtype in (torch.bfloat16, torch.float32):
-            for demand in (0, 1, 2):
+            for demand in (0, 1, 2) if plane_major else (0,):
                 for name, m in cases:
                     masked = KERNELS[name][0]
-                    x, planes, scales, mask = operands(torch, m, k, n, gen, x_dtype, demand)
-                    kw = dict(group_size=GROUP, sign_mag=True, plane_major=True,
-                              demand_drop=demand)
+                    x, planes, scales, mask = operands(torch, m, k, n, gen, x_dtype, demand,
+                                                       plane_major, group)
+                    kw = dict(group_size=group, demand_drop=demand, **layout)
                     fn = getattr(qsq, name)
                     if not masked:
                         mask = torch.full((m,), ref.MASK_VARIANTS[demand], dtype=torch.int32,
-                                          device="cuda")
+                                          device=x.device)
                     got = fn(x, mask, planes, scales, **kw) if masked else fn(
                         x, planes, scales, **kw)
                     torch.cuda.synchronize()
                     want = ref.qsq_matmul_plane_mask_ref(x, mask, planes, scales, **kw)
                     err = (got.double() - want.double()).abs()
-                    bound = f32_bound(torch, x, mask, planes, scales, demand)
+                    bound = f32_bound(torch, x, mask, planes, scales, demand, group=group,
+                                      **layout)
                     if not bool((err <= bound).all()) or not bool(torch.isfinite(got).all()):
                         raise AssertionError(
                             f"{name} K={k} N={n} {x_dtype} demand={demand}: max err "
                             f"{float(err.max()):.3e} exceeds the f32 bound")
                     n_checks += 1
+                    if errs is not None:
+                        errs[name] = max(errs.get(name, 0.0), float(err.max()))
                     if masked:
                         # bit-identity: each row equals the unmasked kernel on
                         # planes truncated to the row's drop ...
@@ -220,16 +248,18 @@ def check_kernels(torch, gen, cases=None):
                             if drop < demand or not bool(rows.any()):
                                 continue
                             trunc = planes.clone()
-                            trunc[3 - drop:] = 0
-                            base = plain_fn(x, trunc, scales, group_size=GROUP, sign_mag=True,
-                                            plane_major=True)
+                            if plane_major:  # MSB first
+                                trunc[3 - drop:] = 0
+                            else:  # LSB first
+                                trunc[:, :drop] = 0
+                            base = plain_fn(x, trunc, scales, group_size=group, **layout)
                             if not torch.equal(got[rows], base[rows]):
                                 raise AssertionError(f"{name} K={k} N={n} {x_dtype}: masked "
                                                      f"rows at drop {drop} differ from the "
                                                      f"unmasked kernel on truncated planes")
                         # ... and demand routing changes no bit
-                        full = fn(x, mask, planes, scales, group_size=GROUP, sign_mag=True,
-                                  plane_major=True, demand_drop=0)
+                        full = fn(x, mask, planes, scales, group_size=group, demand_drop=0,
+                                  **layout)
                         if demand and not torch.equal(got, full):
                             raise AssertionError(f"{name} K={k} N={n} {x_dtype}: demand "
                                                  f"{demand} routing changed the output")
@@ -238,18 +268,20 @@ def check_kernels(torch, gen, cases=None):
     return n_checks
 
 
-def time_kernels(torch, gen, flush):
+def time_kernels(torch, gen, flush, sign_mag=True, plane_major=True):
     """Per kernel, summed over the five smollm shapes (bf16 x, all planes):
-    kernel, plain-version and library times and the bound; the masked
-    kernels also at demand_drop = 2 (one plane read, one variant decoded)."""
+    kernel, plain-version and library times and the bound; on the
+    plane-major layout the masked kernels also at demand_drop = 2 (one
+    plane read, one variant decoded)."""
     rows = {}
+    layout = dict(sign_mag=sign_mag, plane_major=plane_major)
     for name, (masked, m, source, replaces) in KERNELS.items():
-        for demand in (0, 2) if masked else (0,):
+        for demand in (0, 2) if masked and plane_major else (0,):
             tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bytes_s=0.0, ops_s=0.0,
                        bound=0.0)
             for k, n in SHAPES:
                 b_s, o_s, ms, plain_ms, lib_ms = time_one(torch, gen, flush, name, masked, m,
-                                                          k, n, demand)
+                                                          k, n, demand, **layout)
                 tag = f" d={demand}" if masked else ""
                 say(f"  {name:18s}{tag} K={k:5d} N={n:5d} M={m:2d}: kernel {ms * 1e3:8.2f} us  "
                     f"plain {plain_ms * 1e3:8.2f} us  torch.matmul {lib_ms * 1e3:8.2f} us  "
@@ -276,13 +308,15 @@ def time_kernels(torch, gen, flush):
     return rows
 
 
-def time_one(torch, gen, flush, name, masked, m, k, n, demand):
+def time_one(torch, gen, flush, name, masked, m, k, n, demand, sign_mag=True,
+             plane_major=True):
     """One shape: (bytes bound s, ops bound s, kernel ms, plain ms, torch.matmul ms).
     The bound counts the 3 - demand planes the call must read."""
     from repro_torch.kernels import qsq, ref
 
-    x, planes, scales, mask = operands(torch, m, k, n, gen, torch.bfloat16, demand)
-    kw = dict(group_size=GROUP, sign_mag=True, plane_major=True, demand_drop=demand)
+    layout = dict(sign_mag=sign_mag, plane_major=plane_major)
+    x, planes, scales, mask = operands(torch, m, k, n, gen, torch.bfloat16, demand, plane_major)
+    kw = dict(group_size=GROUP, demand_drop=demand, **layout)
     fn = getattr(qsq, name)
     if masked:
         def kern():
@@ -295,10 +329,9 @@ def time_one(torch, gen, flush, name, masked, m, k, n, demand):
             return fn(x, planes, scales, **kw)
 
         def plain():
-            return ref.qsq_matmul_ref(x, planes, scales, GROUP, sign_mag=True,
-                                      plane_major=True)
-    w = ref.qsq_dequant_ref(planes, scales, GROUP, sign_mag=True, plane_major=True,
-                            n_planes=3 - demand).to(torch.bfloat16)
+            return ref.qsq_matmul_ref(x, planes, scales, GROUP, **layout)
+    w = ref.qsq_dequant_ref(planes, scales, GROUP, n_planes=3 - demand,
+                            **layout).to(torch.bfloat16)
 
     def library():
         return torch.matmul(x, w)
@@ -906,15 +939,16 @@ def time_new_shapes(torch, gen, m_static: int):
     del flush
 
 
-def _stream(torch, eng, prompts, quals, spec, speculate):
-    """12 requests, 8 up front and 4 more joining the running decode, as in
-    phase 3; ``spec[i]`` requests speculate with ``speculate``."""
+def _stream(torch, eng, prompts, quals, spec, speculate, first=8):
+    """The requests, ``first`` up front and the rest joining the running
+    decode two steps apart, as in phase 3; ``spec[i]`` requests speculate
+    with ``speculate``."""
     eng.reset_stream()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     rids = [eng.submit(p, max_new=MAX_NEW, quality=q, speculate=speculate if sp else None)
-            for p, q, sp in zip(prompts[:8], quals, spec, strict=False)]
-    for i in range(8, len(prompts)):
+            for p, q, sp in zip(prompts[:first], quals, spec, strict=False)]
+    for i in range(first, len(prompts)):
         eng.step()
         eng.step()
         rids.append(eng.submit(prompts[i], max_new=MAX_NEW, quality=quals[i],
@@ -1256,6 +1290,380 @@ def spec_card_vs_cpu(torch, workdir: Path, card="cuda"):
         f"plain on both; verify logits max |diff| {float(diff.max()):.3e} (1e-4 abs + rel)")
 
 
+# --------------------------------------------------------------------------
+# Phase 8, wide: verify windows beyond SAME_PLAN_ROWS, in row blocks
+# --------------------------------------------------------------------------
+WIDE_SLOTS = (16, 40)  # verify M = 80 (two row blocks) and 200 (four)
+
+
+def check_block_rows(torch, gen, slots: int) -> int:
+    """A verify window of ``slots`` x W rows, run through the dispatcher in
+    row blocks of at most SAME_PLAN_ROWS as ``lm_verify`` runs it, equals the
+    decode step's rows (the dispatcher at M = slots) bit for bit: five
+    shapes, bf16 and f32 x, demand 0 and 2, masked and unmasked."""
+    from repro_torch.kernels import dispatch, ref
+
+    m = slots * W_VERIFY
+    n = 0
+    for k, nn in SHAPES:
+        for x_dtype in (torch.bfloat16, torch.float32):
+            for demand in (0, 2):
+                x, planes, scales, _ = operands(torch, m, k, nn, gen, x_dtype, demand)
+                variants = torch.tensor(ref.MASK_VARIANTS[demand:], dtype=torch.int32,
+                                        device=gen.device)
+                lane = variants[torch.randint(0, len(variants), (slots,), generator=gen,
+                                              device=gen.device)]
+                kw = dict(group_size=GROUP, sign_mag=True, plane_major=True)
+                with dispatch.verify_row_blocks():
+                    win_m = dispatch.packed_matmul(x, planes, scales, demand_drop=demand,
+                                                   plane_mask=lane.repeat_interleave(W_VERIFY),
+                                                   **kw)
+                    win = dispatch.packed_matmul(x, planes, scales, **kw)
+                for j in range(W_VERIFY):
+                    xj = x[j::W_VERIFY].contiguous()
+                    dec_m = dispatch.packed_matmul(xj, planes, scales, demand_drop=demand,
+                                                   plane_mask=lane, **kw)
+                    dec = dispatch.packed_matmul(xj, planes, scales, **kw)
+                    if not (torch.equal(win_m[j::W_VERIFY], dec_m)
+                            and torch.equal(win[j::W_VERIFY], dec)):
+                        raise AssertionError(
+                            f"row-blocked verify rows differ from decode rows at {slots} slots: "
+                            f"K={k} N={nn} {x_dtype} demand={demand} position {j}")
+                    n += 2
+    return n
+
+
+def speculative_wide(torch, gen, path: Path, cfg, slot_counts=WIDE_SLOTS,
+                     device="cuda") -> None:
+    """Full-width speculative streams at 16 and 40 slots, where the verify
+    window (slots x 5 rows) exceeds SAME_PLAN_ROWS: tokens equal plain
+    decode, every round drafts the reference's k (clamped by max_new only),
+    the phase words equal the meter, and the verify's packed matmuls run in
+    row blocks (K4 launched once per block)."""
+    from repro_torch import api
+    from repro_torch.kernels import dispatch, qsq, ref
+    from repro_torch.kernels.qsq import SAME_PLAN_ROWS
+
+    art = api.load(path, verify=True)
+    sc = api.SpecConfig("lo", k=W_VERIFY - 1)
+    rng = torch.Generator().manual_seed(2)
+    for slots in slot_counts:
+        n = check_block_rows(torch, gen, slots)
+        say(f"  {slots} slots: row-blocked verify rows (M={slots * W_VERIFY}) == decode rows "
+            f"(M={slots}) bit for bit: {n} checks")
+        lengths = [5 + (59 * i) // (slots - 1) for i in range(slots)]
+        prompts = [torch.randint(0, cfg.vocab, (ln,), generator=rng).tolist() for ln in lengths]
+        quals = ["hi" if i % 2 == 0 else "mid" for i in range(slots)]
+        spec = [(i // 2) % 2 == 0 for i in range(slots)]
+        eng = art.engine(quality="mid", batch_slots=slots, device=device)
+        plain_toks, _, plain_wall = _stream(torch, eng, prompts, quals, spec, None, slots)
+        rounds = []
+        orig_verify = eng._verify
+
+        def verify(params, cache, window, starts, wlen, smask, *rest):
+            s = eng._session
+            clamp = {}
+            for slot in torch.nonzero(smask.cpu()).flatten().tolist():
+                req = s.sched.slot_req[slot]
+                clamp[slot] = (int(wlen[slot]) - 1, min(sc.k, req.max_new - len(req.out) - 1))
+            before = (qsq.launches["qsq_matmul_masked"] + qsq.launches["qsq_matmul"],
+                      dispatch.counters["gemm"])
+            out = orig_verify(params, cache, window, starts, wlen, smask, *rest)
+            rounds.append((window.numel(), clamp,
+                           qsq.launches["qsq_matmul_masked"] + qsq.launches["qsq_matmul"]
+                           - before[0], dispatch.counters["gemm"] - before[1]))
+            return out
+
+        eng._verify = verify
+        qsq.reset_launches()
+        ref.calls.clear()
+        dispatch.reset_counters()
+        try:
+            toks, stats, wall = _stream(torch, eng, prompts, quals, spec, sc, slots)
+        finally:
+            eng._verify = orig_verify
+        words = eng._session.phase_words
+        tr = dispatch.traffic
+        if toks != plain_toks:
+            bad = [i for i, (a, b) in enumerate(zip(toks, plain_toks, strict=True)) if a != b]
+            raise AssertionError(f"{slots} slots: speculative tokens differ from plain decode "
+                                 f"for requests {bad}")
+        if sum(ref.calls.values()):
+            raise AssertionError(f"plain versions ran: {dict(ref.calls)}")
+        bad = [c for r in rounds for c in r[1].values() if c[0] != c[1]]
+        if not rounds or bad:
+            raise AssertionError(f"{slots} slots: drafted k != min(k, max_new - emitted - 1) "
+                                 f"in {len(bad)} lanes of {len(rounds)} rounds: {bad[:4]}")
+        drafted = sum(c[0] for r in rounds for c in r[1].values())
+        if drafted != stats["drafted"] or drafted == 0:
+            raise AssertionError(f"drafted {stats['drafted']} != {drafted} from the clamp")
+        full = [r for r in rounds if r[0] == slots * W_VERIFY]
+        blocks = -(-slots * W_VERIFY // SAME_PLAN_ROWS)
+        calls = full[0][3] if full else 0
+        if not calls or any(r[2:] != (blocks * calls, calls) for r in full):
+            raise AssertionError(f"{slots} slots: full verifies launched "
+                                 f"{[r[2:] for r in full]} (GEMMs, calls), not {blocks} a call")
+        for phase in ("draft", "verify"):
+            if (tr[f"phase:{phase}:plane_words_read"], tr[f"phase:{phase}:plane_words_full"]) \
+                    != tuple(words[phase]):
+                raise AssertionError(f"phase {phase} traffic != meter {words[phase]}")
+        if 4 * tr["plane_words_read"] != stats["bytes_read"]:
+            raise AssertionError("per-call dispatch traffic disagrees with the byte meter")
+        say(f"  {slots} slots, {slots} requests x {MAX_NEW} tokens, half speculating with "
+            f"SpecConfig('lo', {sc.k}): tokens identical to plain decode; drafted "
+            f"{stats['drafted']} (every round's k == min(k, max_new - emitted - 1), "
+            f"{len(rounds)} rounds), accepted {stats['accepted']}; phase words == meter "
+            f"(verify {words['verify'][0]} of {words['verify'][1]})")
+        say(f"  {slots} slots: each of {len(full)} full verifies (M={slots * W_VERIFY}) ran "
+            f"{blocks} row blocks of <= {SAME_PLAN_ROWS} rows per packed matmul "
+            f"({blocks * calls} GEMM launches for {calls} calls); tokens/s speculative "
+            f"{stats['tokens'] / wall:.1f}, plain {slots * MAX_NEW / plain_wall:.1f}")
+        say(f"  {slots} slots: row blocks re-read "
+            f"{4 * tr['row_block_extra_plane_words']} B of weight planes beyond the "
+            f"{4 * words['verify'][0]} B the verify's logical calls read "
+            f"(+{100 * tr['row_block_extra_plane_words'] / max(words['verify'][0], 1):.1f}%)")
+        del eng
+
+
+# --------------------------------------------------------------------------
+# Phase 9: the paper's own pipeline (LeNet, ConvNet4) on the card
+# --------------------------------------------------------------------------
+PAPER_RUNS = (("LENET", 300, 1024), ("CONVNET4", 150, 768))  # (config, steps, n)
+
+
+def _view(w):
+    """A leaf as its quantization view: 4-D conv -> (cin, kh * kw * cout)."""
+    return w.movedim(2, 0).reshape(w.shape[2], -1) if w.dim() == 4 else w
+
+
+def _same_codes(torch, name, params_cpu, q_card, q_cpu) -> int:
+    """Card and CPU quantizations of one tree: scales within rtol 1e-6, codes
+    equal except at nearest-level ties (|w / alpha| within 1e-5 of a level
+    boundary).  Returns the number of tied codes."""
+    from repro_torch.quant import is_store
+    from repro_torch.tree import tree_leaves
+
+    ties = 0
+    leaves = zip(tree_leaves(params_cpu), tree_leaves(q_card.tree, is_leaf=is_store),
+                 tree_leaves(q_cpu.tree, is_leaf=is_store), strict=True)
+    for w, a, b in leaves:
+        if not is_store(b):
+            continue
+        sa, sb = a.scales.cpu(), b.scales
+        if not torch.allclose(sa, sb, rtol=1e-6, atol=0):
+            raise AssertionError(f"{name}: card scales off the CPU's by "
+                                 f"{float(((sa - sb) / sb).abs().max()):.2e} (rel)")
+        diff = a.levels.cpu() != b.levels
+        if bool(diff.any()):
+            r = (_view(w) / b.scales.repeat_interleave(b.group_size, 0)).abs()[diff]
+            gap = torch.stack([(r - t).abs() / t for t in (0.5, 1.5, 3.0)]).min(0).values
+            if bool((gap > 1e-5).any()):
+                raise AssertionError(f"{name}: {int((gap > 1e-5).sum())} codes differ "
+                                     f"between card and CPU away from a tie")
+            ties += int(diff.sum())
+    return ties
+
+
+def paper_pipeline(torch, workdir: Path, device="cuda") -> None:
+    """LeNet and ConvNet4 at their published widths, trained on the card on
+    the synthetic dataset: float accuracy, QSQ at phi = 1/2/4 (accuracy,
+    Eq. 11/12 memory savings, zeros), CSD at k = 1/2/3, the artifact's
+    tiers, the FC fine-tune, and the card's quantization against the CPU's
+    on the same trained params."""
+    from repro_torch.models import cnn
+
+    # cuDNN's convolution backward and the loss's gather backward pick
+    # non-deterministic kernels by default: the accuracies would move from
+    # run to run
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        for name, steps, n in PAPER_RUNS:
+            _paper_model(torch, workdir, device, getattr(cnn, name), steps, n)
+    finally:
+        torch.use_deterministic_algorithms(False)
+
+
+def _paper_model(torch, workdir: Path, device, cfg, steps: int, n: int) -> None:
+    """One CNN: train, quantize at phi = 1/2/4 on the card and the CPU,
+    CSD, the artifact's tiers."""
+    from repro_torch import api
+    from repro_torch.core.csd import csd_round, partial_product_savings
+    from repro_torch.core.policy import QuantPolicy
+    from repro_torch.core.qsq import QSQConfig, zeros_fraction
+    from repro_torch.models import cnn
+    from repro_torch.quant import (
+        dequantize_pytree,
+        is_store,
+        pytree_bits_report,
+        quantize_pytree,
+    )
+    from repro_torch.train.cnn import finetune_fc, train_cnn
+    from repro_torch.tree import tree_leaves, tree_map
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params, tr_i, tr_l, ev_i, ev_l = train_cnn(cfg, steps=steps, n=n, seed=0,
+                                               device=device)
+    torch.cuda.synchronize()
+    t_train = time.perf_counter() - t0
+    acc = cnn.cnn_accuracy(params, cfg, ev_i, ev_l)
+    mats = [w for w in tree_leaves(params) if w.dim() >= 2]
+    say(f"  {cfg.name}: {steps} steps (n={n}, seed 0) in {t_train:.2f} s, "
+        f"{sum(w.numel() for w in tree_leaves(params))} params; float accuracy "
+        f"{acc:.4f} on {len(ev_l)} held-out images")
+    if not acc > 0.5:
+        raise AssertionError(f"{cfg.name} did not learn: accuracy {acc}")
+    params_cpu = tree_map(lambda t: t.cpu(), params)
+    z_fp = sum(float(zeros_fraction(w)) for w in mats) / len(mats)
+    ties = 0
+    for phi in (1, 2, 4):
+        policy = QuantPolicy(base=QSQConfig(phi=phi, group_size=16), min_numel=256)
+        qp = quantize_pytree(params, policy)
+        acc_q = cnn.cnn_accuracy(dequantize_pytree(qp, like=params), cfg, ev_i, ev_l)
+        rep = pytree_bits_report(params, qp)
+        qs = [q for q in tree_leaves(qp.tree, is_leaf=is_store) if is_store(q)]
+        z_q = sum(float(zeros_fraction(q.levels)) for q in qs) / len(qs)
+        q_cpu = quantize_pytree(params_cpu, policy)
+        if pytree_bits_report(params_cpu, q_cpu) != rep:
+            raise AssertionError(f"{cfg.name} phi={phi}: bits reports differ, card vs CPU")
+        ties += _same_codes(torch, f"{cfg.name} phi={phi}", params_cpu, qp, q_cpu)
+        if not 0.0 < rep["memory_savings"] < 1.0 or not acc_q >= 0.0:
+            raise AssertionError(f"{cfg.name} phi={phi}: report {rep}")
+        say(f"    phi={phi}: accuracy {acc_q:.4f} (drop {acc - acc_q:+.4f}), memory savings "
+            f"{100 * rep['memory_savings']:.2f}% ({rep['n_quantized_leaves']} of "
+            f"{rep['n_leaves']} leaves), zeros {100 * z_fp:.2f}% -> {100 * z_q:.2f}%")
+        if phi == 1:
+            tuned = finetune_fc(dequantize_pytree(qp, like=params), cfg, tr_i, tr_l)
+            say(f"    phi=1 + FC fine-tune (60 steps): accuracy "
+                f"{cnn.cnn_accuracy(tuned, cfg, ev_i, ev_l):.4f}")
+    say(f"    card vs CPU quantization of the same params, phi = 1/2/4: bits reports "
+        f"equal, scales within rtol 1e-6, codes equal except {ties} nearest-level ties")
+    w = torch.cat([m.reshape(-1) for m in mats])
+    for k in (1, 2, 3):
+        mse = float(((w - csd_round(w, k)) ** 2).mean())
+        pps = float(partial_product_savings(w, k))
+        say(f"    CSD k={k}: mse {mse:.3e}, partial products skipped {100 * pps:.1f}% "
+            f"(all {w.numel()} weights)")
+    path = api.compress(None, params, device=device).save(workdir / f"{cfg.name}.edge.npz")
+    art = api.load(path, verify=True)
+    accs = {t: cnn.cnn_accuracy(art.dense_params(t, like=params, device=device), cfg,
+                                ev_i, ev_l) for t in art.quality_names()}
+    say(f"    compress(None) -> save ({path.stat().st_size / 1e3:.1f} kB) -> load -> "
+        f"dense_params: accuracy " + ", ".join(f"{t} {a:.4f}" for t, a in accs.items()))
+    path.unlink()
+
+
+# --------------------------------------------------------------------------
+# Phase 10: serving from pack_params (interleaved Table II planes)
+# --------------------------------------------------------------------------
+def _packed_run(torch, model, tp, toks, steps: int):
+    """Model.prefill of ``toks`` then ``steps`` greedy Model.decode steps ->
+    (tokens (B, steps + 1), logits (steps + 1, B, V) on the CPU, decode ms)."""
+    from repro_torch.models.base import init_params
+
+    dev = toks.device
+    b, s = toks.shape
+    cache = init_params(model.cache_descs(b, s + steps + 1), device=dev)
+    cache, last = model.prefill(tp, cache, toks)
+    outs, logits, ms = [], [last], []
+    cur = torch.argmax(last, -1).to(torch.int32)[:, None]
+    for _ in range(steps):
+        outs.append(cur)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lg, cache = model.decode(tp, cache, {"tokens": cur})
+        cur = torch.argmax(lg[:, -1], -1).to(torch.int32)[:, None]
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        logits.append(lg[:, -1])
+    outs.append(cur)
+    return (torch.cat(outs, 1).cpu(), torch.stack([x.float().cpu() for x in logits]),
+            statistics.median(ms))
+
+
+def _check_table2(tp) -> int:
+    from repro_torch.quant import PackedWeight, is_store
+    from repro_torch.tree import tree_leaves
+
+    packed = [x for x in tree_leaves(tp, is_leaf=is_store) if isinstance(x, PackedWeight)]
+    if not packed or any(x.sign_mag or x.plane_major for x in packed):
+        raise AssertionError("pack_params must give interleaved Table II planes")
+    return len(packed)
+
+
+PACKED_SLOTS, PACKED_PROMPT, PACKED_GROUP = 8, 16, 64
+
+
+def packed_path(torch, gen, cfg, steps=6, device="cuda") -> tuple[dict, dict]:
+    """Full-width smollm-135m (random init, seed 0) packed by pack_params
+    (G = 64, min_numel 65536) and served through Model.prefill (K3) and
+    Model.decode (K1) on Table II planes; then the 2-layer d64 config
+    against the CPU path.  First K1 and K3 are held against their plain
+    versions at this path's M, group size and layout.  Returns the path's
+    launches and that check's worst |kernel - plain| per kernel."""
+    from repro_torch.kernels import qsq, ref
+    from repro_torch.models.api import Model
+    from repro_torch.models.base import init_params
+    from repro_torch.quant.packed import pack_params
+    from repro_torch.tree import tree_map
+
+    errs = {}
+    n = check_kernels(torch, gen, cases=[("qsq_matvec", PACKED_SLOTS),
+                                         ("qsq_matmul", PACKED_SLOTS * PACKED_PROMPT)],
+                      sign_mag=False, plane_major=False, group=PACKED_GROUP, errs=errs)
+    say(f"  K1 at M={PACKED_SLOTS} and K3 at M={PACKED_SLOTS * PACKED_PROMPT}, G={PACKED_GROUP}, "
+        f"Table II layout: {n} checks within the f32 bound (five shapes, bf16 and f32 x); "
+        f"max |kernel - plain| K1 {errs['qsq_matvec']:.3e}, K3 {errs['qsq_matmul']:.3e}")
+    model = Model(cfg)
+    descs = model.param_descs()
+    params = init_params(descs, torch.Generator(device=device).manual_seed(0), device=device)
+    tp = pack_params(params, descs, group_size=PACKED_GROUP, min_numel=65536)
+    del params
+    n_packed = _check_table2(tp)
+    toks = torch.randint(0, cfg.vocab, (PACKED_SLOTS, PACKED_PROMPT),
+                         generator=torch.Generator().manual_seed(3), dtype=torch.int32).to(device)
+    qsq.reset_launches()
+    ref.calls.clear()
+    runs = [_packed_run(torch, model, tp, toks, steps) for _ in range(2)]
+    launches = dict(qsq.launches)
+    if sum(ref.calls.values()):
+        raise AssertionError(f"plain versions ran on the pack_params path: {dict(ref.calls)}")
+    if not launches.get("qsq_matmul") or not launches.get("qsq_matvec") or \
+            launches.get("qsq_matmul_masked") or launches.get("qsq_matvec_masked"):
+        raise AssertionError(f"pack_params path launches: {launches}")
+    if not torch.equal(runs[0][0], runs[1][0]):
+        raise AssertionError("two pack_params runs gave different greedy tokens")
+    if not bool(torch.isfinite(runs[0][1]).all()):
+        raise AssertionError("pack_params logits are not finite")
+    per_step = (launches["qsq_matvec"] // 2 - 1) // steps  # the prefill's head is one K1
+    say(f"  full width: {n_packed} packed leaves (interleaved Table II, sign_mag=False); "
+        f"prefill {PACKED_SLOTS} x {PACKED_PROMPT} (K3 at M={PACKED_SLOTS * PACKED_PROMPT}) + "
+        f"{steps} decode steps at {PACKED_SLOTS} slots, twice: tokens "
+        f"identical, logits finite; kernels launched {launches}, plain versions 0")
+    say(f"  decode step: median {runs[1][2]:.2f} ms (host clock, synchronized), "
+        f"{per_step} K1 launches per step")
+
+    d64, params = d64_model_params(torch)
+    out = {}
+    for dev in ("cpu", device):
+        tpd = pack_params(tree_map(lambda t, d=dev: t.to(d), params), d64.param_descs(),
+                          group_size=16, min_numel=1024)
+        _check_table2(tpd)
+        t = torch.tensor([[5, 9, 2, 8], [1, 2, 3, 4], [7, 7, 0, 250]], dtype=torch.int32)
+        out[dev] = _packed_run(torch, d64, tpd, t.to(dev), 4)
+    if not torch.equal(out["cpu"][0], out[device][0]):
+        raise AssertionError(f"d64 pack_params tokens differ, card vs CPU:\n{out['cpu'][0]}\n"
+                             f"{out[device][0]}")
+    diff = (out[device][1] - out["cpu"][1]).abs()
+    if not bool((diff <= 1e-4 + 1e-4 * out["cpu"][1].abs()).all()):
+        raise AssertionError(f"d64 pack_params logits off the CPU's by {float(diff.max()):.3e}")
+    say(f"  d64 (2 layers, f32): pack_params tokens identical on card and CPU, logits max "
+        f"|diff| {float(diff.max()):.3e} (1e-4 abs + rel)")
+    return launches, errs
+
+
 def main() -> int:
     import torch
 
@@ -1290,6 +1698,10 @@ def main() -> int:
         f"masked bit for bit")
     flush = Flush(torch)
     rows = time_kernels(torch, gen, flush)
+    say("[2] K1-K4 on the Table II layout (sign_mag=False, plane_major=False), demand 0")
+    n = check_kernels(torch, gen, sign_mag=False, plane_major=False)
+    say(f"    {n} checks passed: f32 bound, masked == truncated bit for bit (every variant)")
+    table2 = time_kernels(torch, gen, flush, sign_mag=False, plane_major=False)
     del flush
 
     workdir = ROOT / "build" / "smoke"
@@ -1317,17 +1729,34 @@ def main() -> int:
     train_card_vs_cpu(torch)
     say("[8] full-width smollm-135m speculative and static serving")
     spec_launches = speculative_and_static(torch, gen, art_path, get_arch("smollm_135m"))
+    say("[8] verify windows beyond 64 rows: full-width speculative streams at 16 and 40 "
+        "slots")
+    speculative_wide(torch, gen, art_path, get_arch("smollm_135m"))
     art_path.unlink()
     say("[8] card against CPU: speculative and static serving at the d64 test config")
     spec_card_vs_cpu(torch, workdir)
+    say("[9] the paper's pipeline: LeNet and ConvNet4 trained, quantized and compressed on "
+        "the card")
+    paper_pipeline(torch, workdir)
+    say("[10] full-width smollm-135m served from pack_params (Table II planes)")
+    packed_launches, packed_errs = packed_path(torch, gen, get_arch("smollm_135m"))
 
     for name, row in rows.items():
         row["launches"] = launches.get(name, 0)
         row["launches_spec_static"] = spec_launches.get(name, 0)
         row["max_abs_err"] = None
     errs = max_abs_errors(torch, gen)
+    errs2 = max_abs_errors(torch, gen, sign_mag=False, plane_major=False)
     for name, e in errs.items():
         rows[name]["max_abs_err"] = e
+        rows[name]["launches_packed_params"] = packed_launches.get(name, 0)
+        rows[name]["packed_params_max_abs_err"] = packed_errs.get(name)
+        rows[name].update(table2_ms=table2[name]["ms"], table2_plain_ms=table2[name]["plain_ms"],
+                          table2_library_ms=table2[name]["library_ms"],
+                          table2_bound_ms=table2[name]["bound_ms"],
+                          table2_max_abs_err=errs2[name])
+        say(f"    {name}: max |kernel - plain| {e:.3e} (plane-major, sign-magnitude), "
+            f"{errs2[name]:.3e} (Table II layout)")
     k5_row.update(launches=train_launches.get(K5[0], 0), max_abs_err=k5_err)
     say(f"    total {time.perf_counter() - t_start:.1f} s")
     say(json.dumps({"kernels": [rows[k] for k in KERNELS] + [k5_row]}))
@@ -1337,21 +1766,22 @@ def main() -> int:
     return 0
 
 
-def max_abs_errors(torch, gen) -> dict:
+def max_abs_errors(torch, gen, sign_mag=True, plane_major=True) -> dict:
     """Max |kernel - plain| per kernel over the five shapes (bf16 x)."""
     from repro_torch.kernels import qsq, ref
 
+    layout = dict(sign_mag=sign_mag, plane_major=plane_major)
     out = {}
     for name, (masked, m, _, _) in KERNELS.items():
         worst = 0.0
         for k, n in SHAPES:
-            x, planes, scales, mask = operands(torch, m, k, n, gen, torch.bfloat16)
-            kw = dict(group_size=GROUP, sign_mag=True, plane_major=True)
+            x, planes, scales, mask = operands(torch, m, k, n, gen, torch.bfloat16,
+                                               plane_major=plane_major)
+            kw = dict(group_size=GROUP, **layout)
             fn = getattr(qsq, name)
             got = fn(x, mask, planes, scales, **kw) if masked else fn(x, planes, scales, **kw)
             want = (ref.qsq_matmul_plane_mask_ref(x, mask, planes, scales, **kw) if masked
-                    else ref.qsq_matmul_ref(x, planes, scales, GROUP, sign_mag=True,
-                                            plane_major=True))
+                    else ref.qsq_matmul_ref(x, planes, scales, GROUP, **layout))
             worst = max(worst, float((got - want).abs().max()))
         out[name] = worst
     return out

@@ -37,6 +37,16 @@ def bits_per_code(phi: int) -> int:
     return 2 if phi == 1 else 3
 
 
+def levels_for_phi(phi: int) -> np.ndarray:
+    """Signed level alphabet for a given phi.
+
+    phi=1 -> {0, +-1};  phi=2 -> {0, +-1, +-2};  phi=4 -> {0, +-1, +-2, +-4}.
+    """
+    mags = [0, 1, 2, 4][: theta_levels(phi)]
+    pos = [m for m in mags if m > 0]
+    return np.array([0] + pos + [-m for m in pos], dtype=np.int8)
+
+
 @dataclasses.dataclass(frozen=True)
 class QSQConfig:
     """Quantizer hyper-parameters (see the JAX package's ``QSQConfig``)."""
@@ -71,6 +81,22 @@ class QSQTensor:
     group_size: int
     phi: int
     conv_shape: tuple | None = None
+
+    @property
+    def shape(self):
+        return tuple(self.levels.shape)
+
+    def codes(self) -> torch.Tensor:
+        """Signed levels -> Table II 3-bit codes (uint8)."""
+        return levels_to_codes(self.levels)
+
+    def dequantize(self, dtype=torch.float32) -> torch.Tensor:
+        return dequantize(self, dtype=dtype)
+
+    def nbits(self, scalar_bits: int = 32) -> int:
+        """Total stored bits (Eq. 12 generalized to arbitrary tensors)."""
+        return int(bits_per_code(self.phi) * self.levels.numel()
+                   + scalar_bits * self.scales.numel())
 
 
 def _table(table: np.ndarray, device) -> torch.Tensor:
@@ -181,3 +207,29 @@ def dequantize(q: QSQTensor, dtype=torch.float32) -> torch.Tensor:
     lev = q.levels.to(torch.float32).reshape(k // q.group_size, q.group_size,
                                              *q.levels.shape[1:])
     return (lev * q.scales.unsqueeze(1)).reshape(q.levels.shape).to(dtype)
+
+
+def quantization_error(w: torch.Tensor, q: QSQTensor) -> torch.Tensor:
+    """Eq. 5 objective value ||w - alpha*beta||^2 (total, f32)."""
+    return torch.sum((w.to(torch.float32) - q.dequantize()) ** 2)
+
+
+def zeros_fraction(x: torch.Tensor) -> torch.Tensor:
+    """Fraction of exactly-zero entries (the paper reports +6% zeros after QSQ)."""
+    return torch.mean((x == 0).to(torch.float32))
+
+
+def exhaustive_threshold_search(w: torch.Tensor, cfg: QSQConfig,
+                                deltas=(1.5, 2.0, 2.5, 3.0),
+                                gamma_fracs=(0.25, 0.5, 0.75)) -> QSQConfig:
+    """The paper's 'thresholds determined by exhaustive search' (sec III.A):
+    the (delta, gamma) of the sigma assignment mode with the least Eq. 5
+    reconstruction error over a small grid."""
+    best, best_err = cfg, float("inf")
+    for d in deltas:
+        for g in gamma_fracs:
+            cand = dataclasses.replace(cfg, assign="sigma", delta=d, gamma_frac=g)
+            err = float(quantization_error(w, quantize(w, cand)))
+            if err < best_err:
+                best, best_err = cand, err
+    return best

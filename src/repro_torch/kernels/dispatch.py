@@ -14,6 +14,13 @@ at trace time — once per compiled program — so its counters stay frozen
 across cached dispatches; the port runs eagerly and counts each one.)
 Inside :func:`dispatch_phase` every call also adds its plane words under
 ``"phase:<label>:plane_words_read|full"``, per call as well.
+
+Inside :func:`verify_row_blocks` a call of more than
+:data:`~repro_torch.kernels.qsq.SAME_PLAN_ROWS` rows runs as several
+launches of at most that many rows each (the speculative verify, so each
+launch keeps the GEMV's split of K).  The counters still count the one logical call;
+``traffic["row_block_extra_plane_words"]`` adds the plane words the extra
+launches read again, and ``kernels.qsq.launches`` counts every launch.
 """
 from __future__ import annotations
 
@@ -45,9 +52,11 @@ traffic: collections.Counter = collections.Counter()
 # serving-phase label for traffic attribution ("" = unlabeled), set only
 # through dispatch_phase()
 _phase: str = ""
+# most rows one launch may take (0 = any), set only through verify_row_blocks()
+_block_rows: int = 0
 
 __all__ = ["GEMV_M_MAX", "MASK_VARIANTS", "Plan", "counters", "dispatch_phase",
-           "packed_matmul", "plan", "reset_counters", "traffic"]
+           "packed_matmul", "plan", "reset_counters", "traffic", "verify_row_blocks"]
 
 
 def reset_counters() -> None:
@@ -67,6 +76,21 @@ def dispatch_phase(label: str):
         yield
     finally:
         _phase = prev
+
+
+@contextlib.contextmanager
+def verify_row_blocks():
+    """Run every packed matmul inside the block in launches of at most
+    ``SAME_PLAN_ROWS`` rows (a multiple of 16, so every 16-row tile keeps
+    its rows and a masked launch keeps one variant a tile): ``lm_verify``
+    runs in it so each launch takes the GEMV's split."""
+    global _block_rows
+    prev = _block_rows
+    _block_rows = qsq.SAME_PLAN_ROWS
+    try:
+        yield
+    finally:
+        _block_rows = prev
 
 
 @dataclasses.dataclass(frozen=True)
@@ -120,7 +144,19 @@ def packed_matmul(x: torch.Tensor, planes: torch.Tensor, scales: torch.Tensor, *
               demand_drop=demand_drop)
     if plane_mask is not None:
         counters[f"{p.route}:masked"] += 1
-        fn = qsq.qsq_matvec_masked if p.route == ROUTE_GEMV else qsq.qsq_matmul_masked
-        return fn(x, plane_mask.to(torch.int32), planes, scales, **kw)
-    fn = qsq.qsq_matvec if p.route == ROUTE_GEMV else qsq.qsq_matmul
-    return fn(x, planes, scales, **kw)
+        masked = qsq.qsq_matvec_masked if p.route == ROUTE_GEMV else qsq.qsq_matmul_masked
+        plane_mask = plane_mask.to(torch.int32)
+
+        def launch(lo: int, hi: int) -> torch.Tensor:
+            return masked(x[lo:hi], plane_mask[lo:hi], planes, scales, **kw)
+    else:
+        plain = qsq.qsq_matvec if p.route == ROUTE_GEMV else qsq.qsq_matmul
+
+        def launch(lo: int, hi: int) -> torch.Tensor:
+            return plain(x[lo:hi], planes, scales, **kw)
+    r = _block_rows or m
+    if m <= r:
+        return launch(0, m)
+    n_blocks = -(-m // r)
+    traffic["row_block_extra_plane_words"] += (n_blocks - 1) * n_read * words
+    return torch.cat([launch(i, i + r) for i in range(0, m, r)])

@@ -17,7 +17,6 @@ _NOT_PORTED = {
     "ssm": "ROADMAP Queue 1, item 10 (the other families)",
     "hybrid": "ROADMAP Queue 1, item 10 (the other families)",
     "encdec": "ROADMAP Queue 1, item 10 (the other families)",
-    "cnn": "ROADMAP Queue 1, item 9 (the paper's own models)",
 }
 
 
@@ -27,9 +26,12 @@ class Model:
 
     def __post_init__(self):
         f = self.cfg.family
+        if f not in _NOT_PORTED and f != "dense":
+            raise ValueError(f"unknown family {f} (the paper's CNNs are "
+                             f"repro_torch.models.cnn, not a Model)")
         if f != "dense":
             raise NotImplementedError(
-                f"family {f!r} is not ported yet: {_NOT_PORTED.get(f, 'ROADMAP Queue 1')}")
+                f"family {f!r} is not ported yet: {_NOT_PORTED[f]}")
 
     def param_descs(self):
         return transformer.lm_descs(self.cfg)

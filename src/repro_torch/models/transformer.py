@@ -16,6 +16,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.kernels.dispatch import verify_row_blocks
 from repro_torch.models import layers as L
 from repro_torch.models.base import map_stacked
 from repro_torch.quant.store import PackedWeight, is_store
@@ -160,14 +161,20 @@ def lm_verify(params: dict, cfg: ArchConfig, cache: LMCache, tokens: torch.Tenso
     (B, W) windows land at cache indices ``[start, start + wlen)`` of each
     lane (in place, over the draft-tier KV), at the lane's verify tier, and
     logits (B, W, vocab) f32 come back for every window position.  The
-    packed matmuls run on the whole window (M = B x W), the norms and the
-    attention position by position (``layers.per_position``), so every row
-    is a decode step's, bit for bit.  ``spec`` marks the speculating lanes
-    (it gates MoE capacity in the JAX package; the dense family does not
-    read it)."""
+    packed matmuls run on the whole window (M = B x W, launched in row
+    blocks of at most ``SAME_PLAN_ROWS``, each with the GEMV's split), the
+    norms and the attention position by position (``layers.per_position``),
+    so every row is a decode step's, bit for bit.  ``spec`` marks the
+    speculating lanes (it gates MoE capacity in the JAX package; the dense
+    family does not read it)."""
     del spec
     if cfg.window is not None:
         raise ValueError("speculative verify requires a full-length KV cache")
+    with verify_row_blocks():
+        return _verify(params, cfg, cache, tokens, start, wlen, tiers, demand)
+
+
+def _verify(params, cfg, cache, tokens, start, wlen, tiers, demand):
     x = L.embed(params["embed"], tokens, cfg.dtype)
     kv = cache.kv
     pos = []

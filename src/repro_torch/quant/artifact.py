@@ -28,6 +28,7 @@ from repro_torch.quant.store import (
     dense_tree,
     is_store,
     is_wire_leaf,
+    max_level_delta,
     packable_leaf,
     plane_mask_for_drop,
     quantize_tree,
@@ -60,6 +61,10 @@ class QualityTier:
     name: str
     drop_planes: int = 0
     drop_frac: float = 1.0
+
+    def max_error_levels(self) -> int:
+        """Per-weight error bound of this tier, in level units (x alpha)."""
+        return max_level_delta(self.drop_planes)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -177,6 +182,10 @@ class EdgeArtifact:
     rank: tuple = ()  # ((path, sensitivity_score), ...) most sensitive first
     policy_meta: dict = dataclasses.field(default_factory=dict)
     plane_damage: dict = dataclasses.field(default_factory=dict)
+
+    @property
+    def arch(self) -> str:
+        return self.arch_config.name if self.arch_config is not None else ""
 
     def model(self):
         if self.arch_config is None:

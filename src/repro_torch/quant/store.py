@@ -24,6 +24,8 @@ import torch
 from repro_torch.core import codec
 from repro_torch.core.policy import QuantPolicy
 from repro_torch.core.qsq import (
+    LEVEL_TABLE,
+    SM_LEVEL_TABLE,
     QSQTensor,
     _quantize_impl,
     codes_to_levels,
@@ -92,6 +94,19 @@ def plane_mask_for_drop(drop: int) -> int:
     return _trunc_code_mask(drop)
 
 
+def max_level_delta(drop: int) -> int:
+    """Worst-case |level change| from dropping ``drop`` LSB code planes (0,
+    2, 4 for drop 0, 1, 2): a truncated tier's per-weight error is at most
+    this times its group's alpha, for sign-magnitude and legacy Table II
+    codes alike (the max over both formats' valid codes)."""
+    mask = _trunc_code_mask(drop)
+    sm_valid = (0, 1, 2, 3, 5, 6, 7)  # 4 (-0) unused on valid streams
+    return int(max(
+        max(abs(int(LEVEL_TABLE[c]) - int(LEVEL_TABLE[c & mask])) for c in range(7)),
+        max(abs(int(SM_LEVEL_TABLE[c]) - int(SM_LEVEL_TABLE[c & mask])) for c in sm_valid),
+    ))
+
+
 # --------------------------------------------------------------------------
 # Leaf representations
 # --------------------------------------------------------------------------
@@ -102,6 +117,26 @@ class WeightStore:
 
 def is_store(x) -> bool:
     return isinstance(x, WeightStore)
+
+
+@dataclasses.dataclass
+class DenseWeight(WeightStore):
+    """A dense tensor behind the WeightStore API."""
+
+    value: torch.Tensor
+
+    @property
+    def shape(self):
+        return tuple(self.value.shape)
+
+    def as_dense(self, dtype=torch.float32) -> torch.Tensor:
+        return self.value.to(dtype)
+
+    def matmul(self, x: torch.Tensor) -> torch.Tensor:
+        return torch.tensordot(x, self.value.to(x.dtype), dims=1)
+
+    def nbits(self) -> int:
+        return int(8 * self.value.numel() * self.value.element_size())
 
 
 @dataclasses.dataclass

@@ -30,13 +30,13 @@ exactly.
 from __future__ import annotations
 
 import dataclasses
+import warnings
 from typing import Sequence
 
 import numpy as np
 import torch
 
 from repro_torch.kernels import dispatch
-from repro_torch.kernels.qsq import SAME_PLAN_ROWS
 from repro_torch.models.base import init_params, resolve_device
 from repro_torch.serve.admission import ADMIT, REJECT, SHED, AdmissionPolicy, LoadView
 from repro_torch.serve.scheduler import (
@@ -142,6 +142,21 @@ class ServeEngine:
 
     def _t(self, a: np.ndarray) -> torch.Tensor:
         return torch.as_tensor(a).to(self.device)
+
+    # -- loading -----------------------------------------------------------
+    @classmethod
+    def from_wire(cls, model, wire_tree, cfg: ServeConfig, device="cuda"):
+        """Deprecated shim over :class:`repro_torch.quant.artifact.EdgeArtifact`:
+        ``EdgeArtifact(wire, model.cfg).engine("hi", serve_cfg=cfg)``, full
+        quality on ``device``.  New code calls ``repro_torch.api.compress``
+        and dials quality on the artifact."""
+        warnings.warn("ServeEngine.from_wire is deprecated; use repro_torch.api.compress() "
+                      "/ EdgeArtifact.engine(quality=...) instead",
+                      DeprecationWarning, stacklevel=2)
+        from repro_torch.quant.artifact import EdgeArtifact
+
+        art = EdgeArtifact(wire=wire_tree, arch_config=model.cfg)
+        return art.engine(quality="hi", serve_cfg=cfg, device=device)
 
     # -- quality dial ------------------------------------------------------
     @property
@@ -388,10 +403,8 @@ class ServeEngine:
         drafted_n = accepted_n = 0
         # speculating slots this round: slot -> (k_eff, draft tier index); k
         # is clamped so a round never drafts past max_new (the verify's bonus
-        # token is the +1) and the verify window keeps at most SAME_PLAN_ROWS
-        # rows (so each verify row is a decode row bit for bit on the card),
-        # and a request downgraded to or below its draft tier decodes plainly
-        k_cap = SAME_PLAN_ROWS // s.sched.n_slots - 1
+        # token is the +1), and a request downgraded to or below its draft
+        # tier decodes plainly
         spec: dict[int, tuple[int, int]] = {}
         for slot in live:
             req = s.sched.slot_req[slot]
@@ -400,7 +413,7 @@ class ServeEngine:
             didx = self.tier_names.index(req.speculate.draft_tier)
             if didx <= int(s.tiers[slot]):
                 continue
-            k_eff = min(req.speculate.k, req.max_new - len(req.out) - 1, k_cap)
+            k_eff = min(req.speculate.k, req.max_new - len(req.out) - 1)
             if k_eff >= 1:
                 spec[slot] = (k_eff, didx)
         if spec:
@@ -549,6 +562,13 @@ class ServeEngine:
     def completed_requests(self) -> dict[int, Request]:
         """Every finished Request of the current stream (rid -> Request)."""
         return {} if self._session is None else dict(self._session.sched.completed)
+
+    @property
+    def live_requests(self) -> list[Request]:
+        """Requests currently occupying slots (PREFILLING/DECODING)."""
+        if self._session is None:
+            return []
+        return [r for r in self._session.sched.slot_req if r is not None]
 
     @property
     def now(self) -> float:

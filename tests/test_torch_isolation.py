@@ -52,7 +52,8 @@ def _imported_roots(path: Path) -> set[str]:
 def test_port_file_list_is_complete():
     names = {p.name for p in PORT_FILES}
     assert {"api.py", "engine.py", "store.py", "qsq.py", "chip_smoke.py", "trainer.py",
-            "manager.py", "pipeline.py", "compression.py", "adamw.py"} <= names
+            "manager.py", "pipeline.py", "compression.py", "adamw.py", "cnn.py", "csd.py",
+            "energy.py", "pytree.py", "packed.py"} <= names
     assert ROOT / "src" / "repro_torch" / "launch" / "train.py" in PORT_FILES
     assert len(PORT_FILES) > 20
 
@@ -70,6 +71,8 @@ def test_port_imports_with_jax_blocked():
         "sys.modules['repro'] = None\n"
         "import repro_torch.api, repro_torch.serve.engine, repro_torch.kernels.build\n"
         "import repro_torch.train.trainer, repro_torch.launch.train, repro_torch.kernels\n"
+        "import repro_torch.models.cnn, repro_torch.core.csd, repro_torch.quant.packed\n"
+        "import repro_torch.train.cnn\n"
         "assert not [m for m in sys.modules if sys.modules[m] is not None\n"
         "            and (m in ('jax', 'repro') or m.startswith(('jax.', 'repro.')))]\n"
         "print('ok')\n"

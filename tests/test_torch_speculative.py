@@ -207,14 +207,57 @@ def test_one_tile_gemm_takes_the_gemv_split():
 
 
 def test_verify_window_capped_at_same_plan_rows(spec_path):
-    """16 slots cap the window at 64 // 16 = 4 rows a lane: k = 5 drafts 3."""
-    eng = tapi.load(spec_path).engine(quality="hi", batch_slots=16, device="cpu", **ENG)
-    rid = eng.submit([1, 2, 3], max_new=12, speculate=tapi.SpecConfig("lo", k=5))
-    eng.step()
-    info = eng.step()
-    assert info.drafted == 3
-    eng.run_until_drained()
-    assert len(eng.poll(rid).tokens) == 12
+    """k is clamped by ``max_new`` alone, as the JAX engine clamps it: at 16
+    and 33 slots (verify windows of 16 x 6 and 33 x 6 rows, beyond
+    ``SAME_PLAN_ROWS``) both engines draft 40 and end at clock 25.33, with
+    the same tokens; the verify's packed matmuls run in row blocks of at
+    most 64 rows instead."""
+    for slots in (16, 33):
+        runs = []
+        for api_mod, kw in ((japi, {}), (tapi, {"device": "cpu"})):
+            eng = api_mod.load(spec_path).engine(quality="hi", batch_slots=slots, **ENG,
+                                                 **kw)
+            rid = eng.submit([1, 2, 3], max_new=12, speculate=api_mod.SpecConfig("lo", k=5))
+            eng.run_until_drained()
+            st = eng.poll(rid)
+            runs.append((st.drafted, eng.now, st.tokens))
+        assert runs[1][:2] == runs[0][:2] == (40, pytest.approx(76 / 3, rel=1e-12)), slots
+        assert runs[1][2] == runs[0][2] and len(runs[1][2]) == 12
+
+
+def test_verify_row_blocks_keep_rows(spec_path):
+    """``lm_verify`` at 16 slots x W = 6 (M = 96) launches every packed
+    matmul as a 64-row and a 32-row block; the logits equal the unblocked
+    window's bit for bit on the CPU path, and the dispatch counters still
+    count one call per matmul, with the re-read plane words on their own."""
+    from repro_torch.kernels import ref as tref
+    from repro_torch.models import transformer as ttr
+
+    art = tapi.load(spec_path)
+    model = art.model()
+    tp, _ = art.serve_params("hi", per_request=True, device="cpu")
+    rng = np.random.default_rng(0)
+    b, w = 16, 6
+    cache = tinit(model.cache_descs(b, 32), device="cpu")
+    cache, _ = model.prefill(tp, cache, _t(rng.integers(0, 256, (b, 8), dtype=np.int32)),
+                             _t(np.full((b,), 8, np.int32)), _t(np.zeros((b,), np.int32)), 0)
+    args = [_t(rng.integers(0, 256, (b, w), dtype=np.int32)), _t(np.full((b,), 8, np.int32)),
+            _t(np.full((b,), w, np.int32))]
+    tiers = _t(rng.integers(0, 3, (b,), dtype=np.int32))
+
+    def fresh():
+        return type(cache)(kv=type(cache.kv)(*(t.clone() for t in cache.kv)))
+
+    tdispatch.reset_counters()
+    tref.calls.clear()
+    blocked, _ = ttr.lm_verify(tp, model.cfg, fresh(), *args, None, tiers, 0)
+    n_calls = tdispatch.counters["gemm"]
+    assert n_calls > 0 and tref.calls["qsq_matmul_masked_ref"] + tref.calls[
+        "qsq_matmul_ref"] == 2 * n_calls
+    assert tdispatch.traffic["row_block_extra_plane_words"] == tdispatch.traffic[
+        "plane_words_read"]  # two blocks: each matmul's planes read once more
+    whole, _ = ttr._verify(tp, model.cfg, fresh(), *args, tiers, 0)
+    assert torch.equal(blocked, whole)
 
 
 # --------------------------------------------------------------------------
