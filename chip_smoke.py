@@ -13,14 +13,22 @@ Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``
    bit-identical to full masked — and timed with CUDA events, the masked
    kernels also at demand_drop = 2 against that case's own bound; then
    K1-K4 again on the Table II layout (interleaved planes, offset codes:
-   ``pack_params``' form and the JAX kernels' default) at demand 0;
+   ``pack_params``' form and the JAX kernels' default) at demand 0; then
+   K1 (M = 8) to K4 (M = 64) at the 14 packed shapes of phi4-mini-3.8b,
+   qwen3-14b and deepseek-7b (K to 17408, N to 200064): f32 bound, masked
+   == truncated, no bf16 launch on the FMA route, each shape's plan and
+   time against ``torch.matmul`` and the byte bound;
 3. the main path at full width: ``api.compress`` of smollm-135m (random
    weights from a seeded ``torch.Generator``), ``save``,
    ``api.load(verify=True)``, ``artifact.engine(quality="mid",
    batch_slots=8)`` serving 12 mixed-tier requests with staggered
-   arrivals; every kernel must launch and no plain version may run; then
-   profiles of 4 decode steps and of one admission (device time by
-   kernel, each packed kernel's share and launches);
+   arrivals, once on an eager engine and once on a captured one (the
+   serving steps as CUDA graphs): tokens, launch counts (replays counted)
+   and dispatch counters identical; every kernel must launch, no plain
+   version may run, the meter equals the traffic; a third captured run
+   inside ``no_recapture`` with one host sync a step; decode, admission
+   and verify logits of a replay equal eager bit for bit; then profiles
+   of 4 decode steps and of one admission, eager and captured;
 4. the card against the CPU at the 2-layer d64 test config: identical
    greedy tokens, logits within 1e-4;
 5. the encoder K5 (``qsq_quantize``) against its plain version at the
@@ -44,7 +52,8 @@ Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``
    speculating with SpecConfig("lo", 4), give the tokens of the same
    requests served plainly, with K2 in every draft tick, K4 in every
    verify, no plain version, and phase-labelled plane words equal to the
-   engine's meter; one speculative round profiled; the echo ladder
+   engine's meter, captured and eager alike; one speculative round
+   profiled, eager and captured, with one host sync a tick; the echo ladder
    (a draft tier that drops nothing) accepts every draft; greedy
    ``generate(continuous=False)`` on a single-tier engine launches K1 and
    K3, and where it leaves the continuous path's tokens (at 30 layers and
@@ -68,7 +77,14 @@ Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``
 10. full-width smollm-135m (random init, seed 0) packed by ``pack_params``
    and served by ``Model.prefill`` (K3) and ``Model.decode`` (K1) on Table
    II planes, twice with the same tokens and no plain version; the d64
-   config gives the CPU's tokens and logits within 1e-4.
+   config gives the CPU's tokens and logits within 1e-4;
+11. phi4-mini-3.8b at its published widths and depth (random init, seed
+   0) through phase 3's path, eager and captured (identical tokens, the
+   same checks), a speculative stream equal to plain decode, decode
+   profiles; qwen3-14b and deepseek-7b at their published widths cut to 2
+   layers (a reduction of depth only) serving mixed-tier greedy tokens
+   through the captured engine, the long-K ``wd`` on the GEMM's 16-row
+   tiles; the three smoke configs give the CPU's tokens on the card.
 
 Any failed check raises, so the script exits non-zero and prints no
 result.  The second-to-last line is the per-kernel JSON summary and the
@@ -201,7 +217,7 @@ def f32_bound(torch, x, plane_mask, planes, scales, demand, sign_mag=True, plane
 
 
 def check_kernels(torch, gen, cases=None, sign_mag=True, plane_major=True, group=GROUP,
-                  errs=None):
+                  errs=None, shapes=SHAPES, demands=(0, 1, 2)):
     """Correctness at every shape, dtype and demand; raises on any miss.
     ``cases`` is a list of (kernel name, M); by default each kernel at its
     phase-2 M.  The interleaved layout (``plane_major=False``) is held at
@@ -213,9 +229,9 @@ def check_kernels(torch, gen, cases=None, sign_mag=True, plane_major=True, group
         cases = [(name, m) for name, (_, m, _, _) in KERNELS.items()]
     layout = dict(sign_mag=sign_mag, plane_major=plane_major)
     n_checks = 0
-    for k, n in SHAPES:
+    for k, n in shapes:
         for x_dtype in (torch.bfloat16, torch.float32):
-            for demand in (0, 1, 2) if plane_major else (0,):
+            for demand in demands if plane_major else (0,):
                 for name, m in cases:
                     masked = KERNELS[name][0]
                     x, planes, scales, mask = operands(torch, m, k, n, gen, x_dtype, demand,
@@ -309,9 +325,10 @@ def time_kernels(torch, gen, flush, sign_mag=True, plane_major=True):
 
 
 def time_one(torch, gen, flush, name, masked, m, k, n, demand, sign_mag=True,
-             plane_major=True):
+             plane_major=True, plain_too=True, runs=25):
     """One shape: (bytes bound s, ops bound s, kernel ms, plain ms, torch.matmul ms).
-    The bound counts the 3 - demand planes the call must read."""
+    The bound counts the 3 - demand planes the call must read.  Without
+    ``plain_too`` the plain version is not timed (its ms comes back None)."""
     from repro_torch.kernels import qsq, ref
 
     layout = dict(sign_mag=sign_mag, plane_major=plane_major)
@@ -336,80 +353,185 @@ def time_one(torch, gen, flush, name, masked, m, k, n, demand, sign_mag=True,
     def library():
         return torch.matmul(x, w)
 
-    ms = time_ms(torch, kern, flush)
-    plain_ms = time_ms(torch, plain, flush)
-    lib_ms = time_ms(torch, library, flush)
+    ms = time_ms(torch, kern, flush, runs)
+    plain_ms = time_ms(torch, plain, flush, runs) if plain_too else None
+    lib_ms = time_ms(torch, library, flush, runs)
     nbytes = (m * k * 2 + (3 - demand) * (k // 32) * n * 4 + (k // GROUP) * n * 4 + m * n * 4
               + (m * 4 if masked else 0))
     ops = 2 * m * k * n
     return nbytes / HBM_BYTES_PER_S, ops / PEAK_OPS["bfloat16"], ms, plain_ms, lib_ms
 
 
+# (K, N) of the packed leaves of the other dense configs: wq, wk/wv (deepseek's
+# equal wq), wg/wu, wd, head
+DENSE_SHAPES = {
+    "phi4-mini-3.8b": [(3072, 3072), (3072, 1024), (3072, 8192), (8192, 3072), (3072, 200064)],
+    "qwen3-14b": [(5120, 5120), (5120, 1024), (5120, 17408), (17408, 5120), (5120, 151936)],
+    "deepseek-7b": [(4096, 4096), (4096, 11008), (11008, 4096), (4096, 102400)],
+}
+
+
+def dense_shapes(torch, gen, flush) -> dict:
+    """K1-K4 at the 14 packed shapes of phi4-mini, qwen3-14b and deepseek-7b:
+    within the f32 bound of their plain versions (bf16 and f32 x, all
+    planes, a random mix of tier masks), masked rows equal to the unmasked
+    kernel on truncated planes; no bf16 launch on the FMA route; then each
+    shape's plan and its cold-L2 time (bf16 x) against ``torch.matmul`` and
+    the byte bound.  Returns each kernel's sums over the 14 shapes."""
+    from repro_torch.kernels import qsq
+
+    shapes = [sh for v in DENSE_SHAPES.values() for sh in v]
+    qsq.reset_launches()
+    n = check_kernels(torch, gen, shapes=shapes, demands=(0,))
+    fma = {k: v for k, v in qsq.launches.items() if k.endswith(":fma")}
+    if fma:
+        raise AssertionError(f"bf16 launches took the FMA route: {fma}")
+    say(f"  {n} checks at the 14 shapes passed: f32 bound, masked == truncated bit for bit; "
+        f"bf16 launches on the FMA route: 0")
+    sums = {}
+    for name, (masked, m, _, _) in KERNELS.items():
+        tot = dict(ms=0.0, library_ms=0.0, bound_ms=0.0)
+        for arch, shs in DENSE_SHAPES.items():
+            for k, nn in shs:
+                p = qsq.launch_plan("gemv" if m <= 16 else "gemm", m, k, nn, GROUP,
+                                    torch.bfloat16)
+                b_s, o_s, ms, _, lib_ms = time_one(torch, gen, flush, name, masked, m, k, nn, 0,
+                                                   plain_too=False, runs=10)
+                bound = max(b_s, o_s) * 1e3
+                tot["ms"] += ms
+                tot["library_ms"] += lib_ms
+                tot["bound_ms"] += bound
+                say(f"  {name:18s} {arch:14s} K={k:5d} N={nn:6d} M={m:2d}: kernel "
+                    f"{ms * 1e3:8.2f} us  torch.matmul {lib_ms * 1e3:8.2f} us  bound "
+                    f"{bound * 1e3:7.2f} us ({bound / ms:5.1%} of bound); plan mt={p.mt} "
+                    f"nt={p.nt} wn={p.wn} wk={p.wk} cs={p.cs} persist={p.persist}, "
+                    f"{p.blocks(m, nn)} blocks, {p.smem_bytes(k) / 1024:.1f} KB")
+        sums[name] = tot
+        say(f"  {name} summed over the 14 shapes: kernel {tot['ms']:.4f} ms, torch.matmul "
+            f"{tot['library_ms']:.4f} ms, bound {tot['bound_ms']:.4f} ms")
+    return sums
+
+
 # --------------------------------------------------------------------------
 # Phase 3: the full-width main path
 # --------------------------------------------------------------------------
-def serve_full_width(torch, workdir: Path, cfg, device="cuda"):
+TIER_NAMES = ["hi", "mid", "lo"]
+
+
+def serving_tiers(api):
+    """hi / mid / lo; lo truncates three quarters of the packed leaves, so the
+    most sensitive ones serve untiered through the unmasked kernels at every
+    tier."""
+    return api.QualitySpec((api.QualityTier("hi", 0, 0.0), api.QualityTier("mid", 1, 0.5),
+                            api.QualityTier("lo", 2, 0.75)))
+
+
+def compress_saved(torch, workdir: Path, cfg, name: str, device="cuda"):
+    """``api.compress`` of ``cfg`` (random weights from seed 0), ``save``,
+    ``api.load(verify=True)`` -> (artifact, path, compress+save s, load s)."""
     from repro_torch import api
-    from repro_torch.kernels import dispatch, qsq, ref
     from repro_torch.models.api import Model
     from repro_torch.models.base import init_params
 
     model = Model(cfg)
-    gen = torch.Generator(device=device).manual_seed(0)
-    params = init_params(model.param_descs(), gen, device=device)
-    # lo truncates three quarters of the packed leaves, so the most sensitive
-    # ones serve untiered through the unmasked kernels at every tier
-    tiers = api.QualitySpec((api.QualityTier("hi", 0, 0.0), api.QualityTier("mid", 1, 0.5),
-                             api.QualityTier("lo", 2, 0.75)))
-
-    qsq.reset_launches()
-    ref.calls.clear()
-    dispatch.reset_counters()
+    params = init_params(model.param_descs(), torch.Generator(device=device).manual_seed(0),
+                         device=device)
+    torch.cuda.synchronize()
     t0 = time.perf_counter()
-    art = api.compress(model, params, tiers=tiers, device=device)
-    path = art.save(workdir / "smollm_135m.edge.npz")
+    art = api.compress(model, params, tiers=serving_tiers(api), device=device)
+    del params
+    path = art.save(workdir / f"{name}.edge.npz")
     t_save = time.perf_counter() - t0
     art = api.load(path, verify=True)
     if art.plane_damage:
         raise AssertionError(f"fresh artifact failed its checksums: {art.plane_damage}")
-    eng = art.engine(quality="mid", batch_slots=8, device=device)
-    t_load = time.perf_counter() - t0 - t_save
+    return art, path, t_save, time.perf_counter() - t0 - t_save
 
-    admit_ms, decode_ms = [], []
-    orig_admit, orig_step = eng._admit, eng._cont_step
 
-    def timed_admit(*a):
-        s = time.perf_counter()
-        cache, first = orig_admit(*a)
-        torch.cuda.synchronize()
-        admit_ms.append((time.perf_counter() - s) * 1e3)
-        return cache, first
-
-    def timed_step(*a):
-        s = time.perf_counter()
-        nxt, cache = orig_step(*a)
-        torch.cuda.synchronize()
-        decode_ms.append((time.perf_counter() - s) * 1e3)
-        return nxt, cache
-
-    eng._admit, eng._cont_step = timed_admit, timed_step
-    rng = torch.Generator().manual_seed(1)
+def stream_prompts(torch, cfg, seed=1):
+    """The 12 prompts of the mixed-tier stream, 5 to 64 tokens."""
+    rng = torch.Generator().manual_seed(seed)
     lengths = [5 + (59 * i) // 11 for i in range(12)]  # 5 .. 64
-    prompts = [torch.randint(0, cfg.vocab, (n,), generator=rng).tolist() for n in lengths]
-    names = ["hi", "mid", "lo"]
+    return [torch.randint(0, cfg.vocab, (n,), generator=rng).tolist() for n in lengths]
+
+
+def _wrap(eng, attr, wrapper):
+    """Shadow the engine's method ``attr`` by ``wrapper(orig)`` on the instance."""
+    setattr(eng, attr, wrapper(getattr(eng, attr)))
+
+
+def _timed(torch, sink):
+    def wrapper(orig):
+        def call(*a):
+            t0 = time.perf_counter()
+            out = orig(*a)
+            torch.cuda.synchronize()
+            sink.append((time.perf_counter() - t0) * 1e3)
+            return out
+        return call
+    return wrapper
+
+
+def _sync_counted(torch, bad):
+    """Count the host syncs of each plain ``step()`` (torch's sync debug
+    mode): one for each admission and one for the decode."""
+    import warnings
+
+    def wrapper(orig):
+        def step():
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                info = orig()
+            n = sum("synchroniz" in str(w.message) for w in caught)
+            want = len(info.admitted) + (1 if info.live else 0)
+            if n != want:
+                bad.append((n, want))
+            return info
+        return step
+    return wrapper
+
+
+def serve_stream(torch, eng, prompts, cfg, timed=True, count_syncs=False) -> dict:
+    """The mixed-tier stream on ``eng`` (8 requests up front, 4 joining the
+    running decode two steps apart, 16 tokens each, tiers hi/mid/lo in
+    turn): every kernel launches, no plain version runs, no bf16 call takes
+    the FMA route, and the per-call dispatch traffic equals the byte meter.
+    ``timed`` times each admission and decode call (synchronized);
+    ``count_syncs`` instead checks one host sync per step."""
+    from repro_torch.kernels import dispatch, qsq, ref
+
+    eng.reset_stream()
+    qsq.reset_launches()
+    ref.calls.clear()
+    dispatch.reset_counters()
+    admit_ms, decode_ms, bad = [], [], []
+    if timed:
+        _wrap(eng, "_admit_call", _timed(torch, admit_ms))
+        _wrap(eng, "_decode_call", _timed(torch, decode_ms))
+    if count_syncs:
+        _wrap(eng, "step", _sync_counted(torch, bad))
+        torch.cuda.set_sync_debug_mode("warn")
     torch.cuda.synchronize()
     t1 = time.perf_counter()
-    rids = [eng.submit(p, max_new=16, quality=names[i % 3]) for i, p in enumerate(prompts[:8])]
-    for p_i in range(8, 12):  # later arrivals join the running decode
-        eng.step()
-        eng.step()
-        rids.append(eng.submit(prompts[p_i], max_new=16, quality=names[p_i % 3]))
-    eng.run_until_drained()
-    torch.cuda.synchronize()
+    try:
+        rids = [eng.submit(p, max_new=16, quality=TIER_NAMES[i % 3])
+                for i, p in enumerate(prompts[:8])]
+        for p_i in range(8, 12):  # later arrivals join the running decode
+            eng.step()
+            eng.step()
+            rids.append(eng.submit(prompts[p_i], max_new=16, quality=TIER_NAMES[p_i % 3]))
+        eng.run_until_drained()
+        torch.cuda.synchronize()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+        for attr in ("_admit_call", "_decode_call", "step"):
+            eng.__dict__.pop(attr, None)
     wall = time.perf_counter() - t1
-
+    if bad:
+        raise AssertionError(f"steps with other than one host sync per call: {bad[:6]}")
     launches = dict(qsq.launches)
     stats = eng.stream_stats()
+    tokens = []
     for r in rids:
         st = eng.poll(r)
         if st.finish_reason is None or st.finish_reason.value != "done" or len(st.tokens) != 16:
@@ -417,31 +539,123 @@ def serve_full_width(torch, workdir: Path, cfg, device="cuda"):
                                  f"{len(st.tokens)} tokens")
         if not all(0 <= t < cfg.vocab for t in st.tokens):
             raise AssertionError(f"request {r} emitted out-of-vocab tokens")
+        tokens.append(st.tokens)
     missing = [k for k in KERNELS if launches.get(k, 0) == 0]
     if missing:
         raise AssertionError(f"kernels never launched on the main path: {missing}")
+    fma = {k: v for k, v in launches.items() if k.endswith(":fma")}
+    if fma:
+        raise AssertionError(f"bf16 launches took the FMA route: {fma}")
     if sum(ref.calls.values()):
         raise AssertionError(f"plain versions ran on the main path: {dict(ref.calls)}")
     if 4 * dispatch.traffic["plane_words_read"] != stats["bytes_read"]:
         raise AssertionError("per-call dispatch traffic disagrees with the byte meter")
-    tokens = stats["tokens"]
-    say(f"  artifact: {path.stat().st_size / 2**20:.1f} MiB, compress+save "
-        f"{t_save:.1f} s, load(verify)+engine {t_load:.1f} s, {eng.n_packed_leaves} packed "
-        f"leaves")
-    say(f"  served {len(rids)} requests, {tokens} tokens in {wall:.3f} s: "
-        f"{tokens / wall:.1f} tokens/s")
-    say(f"  decode step: median {statistics.median(decode_ms):.2f} ms over {len(decode_ms)} "
-        f"steps; admission (prefill M=64 + insert): median {statistics.median(admit_ms):.2f} "
-        f"ms over {len(admit_ms)}")
-    say(f"  kernels launched: {launches}; plain versions called: {sum(ref.calls.values())}")
-    say(f"  dispatch routes: {dict(dispatch.counters)}")
-    say(f"  stream_stats: bytes/token {stats['bytes_per_token']:.1f}, read_frac "
-        f"{stats['read_frac']:.4f} (= per-call dispatch traffic "
-        f"{4 * dispatch.traffic['plane_words_read']} B)")
-    eng._admit, eng._cont_step = orig_admit, orig_step
-    profile_decode(torch, eng, prompts[:8], names)
-    profile_admission(torch, eng, prompts[11], "mid")
-    return launches, path
+    return dict(tokens=tokens, launches=launches, counters=dict(dispatch.counters),
+                traffic=dict(dispatch.traffic), stats=stats, wall=wall,
+                decode_ms=statistics.median(decode_ms) if decode_ms else None,
+                admit_ms=statistics.median(admit_ms) if admit_ms else None,
+                n_decode=len(decode_ms), n_admit=len(admit_ms))
+
+
+def eager_and_captured(torch, art, cfg, label: str, slots=8) -> tuple[dict, dict, object]:
+    """The mixed-tier stream on an eager engine and on a captured one from the
+    same artifact: the captured engine's first run captures, its second is
+    timed, its third runs inside ``no_recapture`` with one host sync a step
+    checked.  Tokens, launch counts and dispatch counters equal the eager
+    run's.  Returns (eager run, captured run, captured engine)."""
+    from repro_torch.analysis import no_recapture
+
+    prompts = stream_prompts(torch, cfg)
+    eager = art.engine(quality="mid", batch_slots=slots, device="cuda", eager=True)
+    e = serve_stream(torch, eager, prompts, cfg)
+    del eager
+    eng = art.engine(quality="mid", batch_slots=slots, device="cuda")
+    serve_stream(torch, eng, prompts, cfg, timed=False)
+    c = serve_stream(torch, eng, prompts, cfg)
+    with no_recapture(eng):
+        again = serve_stream(torch, eng, prompts, cfg, timed=False, count_syncs=True)
+    for run, which in ((c, "captured"), (again, "re-run")):
+        if run["tokens"] != e["tokens"]:
+            bad = [i for i, (a, b) in enumerate(zip(run["tokens"], e["tokens"], strict=True))
+                   if a != b]
+            raise AssertionError(f"{label}: {which} tokens differ from eager for requests {bad}")
+        if (run["launches"], run["counters"], run["traffic"]) != \
+                (e["launches"], e["counters"], e["traffic"]):
+            raise AssertionError(f"{label}: {which} counts {run['launches']} != eager "
+                                 f"{e['launches']}")
+    keys = eng._session.graphs.keys()
+    tokens = c["stats"]["tokens"]
+    say(f"  {label}: 12 requests x 16 tokens on {slots} slots, eager and captured: tokens "
+        f"identical, kernel launches identical (replays counted) {c['launches']}, dispatch "
+        f"routes {c['counters']}; plain versions 0; bf16 launches on the FMA route 0")
+    say(f"  {label}: {len(keys)} graphs {sorted(keys)}; a third run inside no_recapture "
+        f"(admissions, evictions, lanes re-tiered) added none, one host sync a step")
+    say(f"  {label}: decode step median eager {e['decode_ms']:.2f} ms, captured "
+        f"{c['decode_ms']:.2f} ms ({e['decode_ms'] / c['decode_ms']:.1f}x) over "
+        f"{c['n_decode']} steps; admission (prefill + insert) median eager "
+        f"{e['admit_ms']:.2f} ms, captured {c['admit_ms']:.2f} ms over {c['n_admit']}")
+    say(f"  {label}: tokens/s eager {tokens / e['wall']:.1f} ({e['wall']:.3f} s), captured "
+        f"{tokens / c['wall']:.1f} ({c['wall']:.3f} s); bytes/token "
+        f"{c['stats']['bytes_per_token']:.1f}, read_frac {c['stats']['read_frac']:.4f} "
+        f"(= per-call dispatch traffic, eager and captured)")
+    return e, c, eng
+
+
+def graph_logits_equal(torch, eng, label: str) -> None:
+    """One decode, one admission prefill and one verify of ``eng``'s model
+    and params, each run eagerly on one copy of the live cache and as a
+    captured graph on another: logits equal bit for bit (a cuBLAS choice
+    that changed under capture would show here)."""
+    from repro_torch.serve.graphs import StepGraphs
+
+    s, model, params = eng._session, eng.model, eng.params
+    b, dev = s.sched.n_slots, eng.device
+    g = torch.Generator(device=dev).manual_seed(5)
+
+    def ints(hi, shape):
+        return torch.randint(0, hi, shape, generator=g, device=dev, dtype=torch.int32)
+
+    tiers = torch.arange(b, device=dev, dtype=torch.int32) % 3
+    ones = torch.ones_like(tiers)
+    start = torch.full((b,), 70, dtype=torch.int32, device=dev)
+    cur, window = ints(model.cfg.vocab, (b, 1)), ints(model.cfg.vocab, (b, W_VERIFY))
+    toks = ints(model.cfg.vocab, (1, s.prefill_len))
+    lens = torch.full((1,), s.prefill_len, dtype=torch.int32, device=dev)
+    wlen = torch.full_like(start, W_VERIFY)
+    fns = {
+        "decode": lambda c: model.decode(params, c, {
+            "tokens": cur, "active": ones, "tiers": tiers, "demand": 0})[0],
+        "admission prefill": lambda c: model.prefill(params, s.zero_slot_cache, toks, lens,
+                                                     tiers[1:2], 1)[1],
+        "verify": lambda c: model.verify(params, c, {
+            "tokens": window, "start": start, "wlen": wlen, "spec": ones, "tiers": tiers,
+            "demand": 0})[0],
+    }
+    for name, fn in fns.items():
+        caches = [type(s.cache)(kv=type(s.cache.kv)(*(t.clone() for t in s.cache.kv)))
+                  for _ in range(2)]
+        want = fn(caches[0])
+        got = StepGraphs(dev).run(name, lambda c=caches[1], f=fn: f(c),
+                                  restore=(caches[1].kv.pos,))
+        if not torch.equal(want, got):
+            raise AssertionError(f"{label}: captured {name} logits differ from eager by "
+                                 f"{float((want - got).abs().max()):.3e}")
+    say(f"  {label}: decode, admission-prefill and verify logits of a captured replay equal "
+        f"the eager ones bit for bit")
+
+
+def serve_full_width(torch, workdir: Path, cfg):
+    art, path, t_save, t_load = compress_saved(torch, workdir, cfg, "smollm_135m")
+    say(f"  artifact: {path.stat().st_size / 2**20:.1f} MiB, compress+save {t_save:.1f} s, "
+        f"load(verify) {t_load:.1f} s")
+    e, c, eng = eager_and_captured(torch, art, cfg, "smollm-135m")
+    graph_logits_equal(torch, eng, "smollm-135m")
+    prompts = stream_prompts(torch, cfg)
+    eager = art.engine(quality="mid", batch_slots=8, device="cuda", eager=True)
+    for label, en in (("eager", eager), ("captured", eng)):
+        profile_decode(torch, en, prompts[:8], TIER_NAMES, label=label)
+        profile_admission(torch, en, prompts[11], "mid", label=label)
+    return c["launches"], path
 
 
 def kernel_of(key: str) -> str | None:
@@ -464,12 +678,12 @@ def device_kernels(prof):
             if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
 
 
-def profile_admission(torch, eng, prompt, quality):
+def profile_admission(torch, eng, prompt, quality, label=""):
     """Device time by kernel over one admission (a single-slot prefill at
     M = 64 and its cache insert), K4's share of it and the launches."""
     from torch.profiler import ProfilerActivity, profile
 
-    orig = eng._admit
+    orig = eng._admit_call
     box = {}
 
     def profiled(*a):
@@ -482,12 +696,13 @@ def profile_admission(torch, eng, prompt, quality):
         box["prof"] = prof
         return out
 
-    eng._admit = profiled
+    eng.reset_stream()
+    eng._admit_call = profiled
     try:
         eng.submit(prompt, max_new=2, quality=quality)
         eng.step()
     finally:
-        eng._admit = orig
+        del eng._admit_call
     eng.run_until_drained()
     kern = device_kernels(box["prof"])
     busy = sum(t for _, t, _ in kern)
@@ -497,7 +712,7 @@ def profile_admission(torch, eng, prompt, quality):
         if name:
             by[name] = (by.get(name, (0.0, 0))[0] + t, by.get(name, (0.0, 0))[1] + n)
     k4_us, k4_n = by.get("qsq_matmul_masked", (0.0, 0))
-    say(f"  profile of one admission ({len(prompt)}-token prompt, M=64): wall "
+    say(f"  {label} profile of one admission ({len(prompt)}-token prompt, M=64): wall "
         f"{box['wall_us'] / 1e3:.2f} ms, device busy {busy / 1e3:.3f} ms "
         f"({100 * busy / box['wall_us']:.1f}% of wall), {sum(n for _, _, n in kern)} launches; "
         f"K4 {k4_us / 1e3:.3f} ms = {100 * k4_us / max(busy, 1e-9):.1f}% of device time in "
@@ -508,11 +723,12 @@ def profile_admission(torch, eng, prompt, quality):
         say(f"    {t / 1e3:7.3f} ms  {n:5d} launches  {name[:90]}")
 
 
-def profile_decode(torch, eng, prompts, names, steps=4):
+def profile_decode(torch, eng, prompts, names, steps=4, label=""):
     """Device time by kernel over ``steps`` full-batch decode steps (after
     the launch counts were read), and the device's busy share of the wall."""
     from torch.profiler import ProfilerActivity, profile
 
+    eng.reset_stream()
     for i, p in enumerate(prompts):
         eng.submit(p, max_new=steps + 4, quality=names[i % 3])
     eng.step()  # admits every prompt, then one decode
@@ -526,7 +742,8 @@ def profile_decode(torch, eng, prompts, names, steps=4):
     eng.run_until_drained()
     kern = device_kernels(prof)
     busy = sum(t for _, t, _ in kern)
-    say(f"  profile of {steps} decode steps at 8 live slots: wall {wall_us / steps / 1e3:.2f} "
+    say(f"  {label} profile of {steps} decode steps at 8 live slots: wall "
+        f"{wall_us / steps / 1e3:.2f} "
         f"ms/step, device busy {busy / steps / 1e3:.2f} ms/step "
         f"({100 * busy / wall_us:.1f}% of wall), "
         f"{sum(n for _, _, n in kern) // steps} launches/step")
@@ -545,9 +762,9 @@ def profile_decode(torch, eng, prompts, names, steps=4):
 # --------------------------------------------------------------------------
 # Phase 4: the card against the CPU at the test config
 # --------------------------------------------------------------------------
-def d64_model_params(torch):
-    """The 2-layer d64 test config (f32) and its parameters on the CPU,
-    drawn with numpy from seed 0."""
+def d64_model_params(torch, cfg=None):
+    """The 2-layer d64 test config (f32), or ``cfg``, and its parameters on
+    the CPU, drawn with numpy from seed 0."""
     import numpy as np
 
     from repro_torch.configs.base import ArchConfig
@@ -556,8 +773,10 @@ def d64_model_params(torch):
     from repro_torch.models.base import is_desc
     from repro_torch.tree import tree_map
 
-    cfg = ArchConfig(name="smollm-bench", family="dense", n_layers=2, d_model=64, n_heads=4,
-                     n_kv=2, d_ff=128, vocab=256, dtype=torch.float32, remat=False)
+    if cfg is None:
+        cfg = ArchConfig(name="smollm-bench", family="dense", n_layers=2, d_model=64,
+                         n_heads=4, n_kv=2, d_ff=128, vocab=256, dtype=torch.float32,
+                         remat=False)
     model = Model(cfg)
     rng = np.random.default_rng(0)
 
@@ -570,13 +789,15 @@ def d64_model_params(torch):
     return model, params_from_numpy(tree_map(draw, model.param_descs(), is_leaf=is_desc), "cpu")
 
 
-def card_vs_cpu(torch, workdir: Path, card="cuda"):
+def card_vs_cpu(torch, workdir: Path, card="cuda", cfg=None):
+    """Greedy tokens identical on the card (captured engine) and the CPU,
+    logits within 1e-4, at the d64 test config or ``cfg``."""
     import numpy as np
 
     from repro_torch import api
     from repro_torch.models.base import init_params
 
-    model, params = d64_model_params(torch)
+    model, params = d64_model_params(torch, cfg)
     path = api.compress(model, params, device="cpu").save(workdir / "d64.edge.npz")
     art = api.load(path)
     prompts = [[5, 9, 2], [17], [3, 3, 3, 3, 8, 1], [250, 1], [7] * 8, [1, 2, 3, 4]]
@@ -592,6 +813,8 @@ def card_vs_cpu(torch, workdir: Path, card="cuda"):
         tp, _ = art.serve_params("hi", per_request=True, device=dev)
         lens = torch.tensor([3, 8, 5], dtype=torch.int32)
         t = torch.tensor(np.random.default_rng(2).integers(0, 256, (3, 8)), dtype=torch.int32)
+        if dev != "cpu" and len(eng._session.graphs) == 0:
+            raise AssertionError("the card engine captured no graph")
         tiers = torch.tensor([0, 2, 1], dtype=torch.int32)
         cache = init_params(model.cache_descs(3, 16), device=dev)
         cache, last = model.prefill(tp, cache, t.to(dev), lens.to(dev), tiers.to(dev), 0)
@@ -609,8 +832,10 @@ def card_vs_cpu(torch, workdir: Path, card="cuda"):
     tol = 1e-4 + 1e-4 * logits["cpu"].abs()
     if not bool((diff <= tol).all()):
         raise AssertionError(f"card logits off the CPU's by {float(diff.max()):.3e}")
-    say(f"  {sum(len(t) for t in toks[card])} greedy tokens identical on card and CPU; "
-        f"logits max |diff| {float(diff.max()):.3e} (tolerance 1e-4 abs + 1e-4 rel)")
+    say(f"  {model.cfg.name}: {sum(len(t) for t in toks[card])} greedy tokens identical on "
+        f"card (captured) and CPU; logits max |diff| {float(diff.max()):.3e} (tolerance 1e-4 "
+        f"abs + 1e-4 rel)")
+    path.unlink()
 
 
 # --------------------------------------------------------------------------
@@ -991,33 +1216,37 @@ def speculative_and_static(torch, gen, path: Path, cfg) -> dict:
     quals = ["hi" if i % 2 == 0 else "mid" for i in range(12)]
     spec = [(i // 2) % 2 == 0 for i in range(12)]  # half of each tier speculates
     sc = api.SpecConfig("lo", k=W_VERIFY - 1)
+    _stream(torch, eng, prompts, quals, spec, None)  # captures the plain stream's keys
     plain_toks, plain_stats, plain_wall = _stream(torch, eng, prompts, quals, spec, None)
 
     ticks = []
-    orig_step, orig_verify = eng._cont_step, eng._verify
 
-    def counted(fn, kind):
-        """Record each draft tick's and each verify's launches (and the
-        verify's rows, M = 8 x window)."""
-        def wrapped(*a):
-            before = dict(qsq.launches)
-            draft = dispatch.traffic["phase:draft:plane_words_read"]
-            out = fn(*a)
-            if kind == "verify" or dispatch.traffic["phase:draft:plane_words_read"] > draft:
-                m = a[2].numel() if kind == "verify" else a[2].shape[0]
-                ticks.append((kind, m, {k: v - before.get(k, 0)
-                                        for k, v in qsq.launches.items()}))
-            return out
-        return wrapped
+    def counted(kind):
+        """Record each draft tick's and each verify's launches (replays
+        counted) and the verify's rows (M = 8 x window)."""
+        def wrapper(fn):
+            def wrapped(s, *a):
+                before = dict(qsq.launches)
+                draft = dispatch.traffic["phase:draft:plane_words_read"]
+                out = fn(s, *a)
+                if kind == "verify" or dispatch.traffic["phase:draft:plane_words_read"] > draft:
+                    m = a[0].size if kind == "verify" else len(a[0])
+                    ticks.append((kind, m, {k: v - before.get(k, 0)
+                                            for k, v in qsq.launches.items()}))
+                return out
+            return wrapped
+        return wrapper
 
-    eng._cont_step, eng._verify = counted(orig_step, "draft"), counted(orig_verify, "verify")
+    _stream(torch, eng, prompts, quals, spec, sc)  # the captures: one per key
+    _wrap(eng, "_decode_call", counted("draft"))
+    _wrap(eng, "_verify_call", counted("verify"))
     qsq.reset_launches()
     ref.calls.clear()
     dispatch.reset_counters()
     try:
         spec_toks, stats, spec_wall = _stream(torch, eng, prompts, quals, spec, sc)
     finally:
-        eng._cont_step, eng._verify = orig_step, orig_verify
+        del eng._decode_call, eng._verify_call
     launches = dict(qsq.launches)
     plain_calls = sum(ref.calls.values())
     words = eng._session.phase_words
@@ -1055,9 +1284,18 @@ def speculative_and_static(torch, gen, path: Path, cfg) -> dict:
         f"{launches}; plain versions called: {plain_calls}")
     say(f"  phase words (per call == meter): draft {words['draft'][0]} of {words['draft'][1]}, "
         f"verify {words['verify'][0]} of {words['verify'][1]}")
-    say(f"  tokens/s: speculative {stats['tokens'] / spec_wall:.1f} ({spec_wall:.3f} s), plain "
-        f"{plain_stats['tokens'] / plain_wall:.1f} ({plain_wall:.3f} s)")
-    profile_spec_round(torch, eng, prompts[:8], sc)
+    eager = art.engine(quality="mid", batch_slots=8, device="cuda", eager=True)
+    e_toks, e_stats, e_wall = _stream(torch, eager, prompts, quals, spec, sc)
+    if e_toks != spec_toks or e_stats != stats:
+        raise AssertionError("eager speculative stream differs from the captured one")
+    say(f"  the same speculative stream eager: tokens and stream_stats identical to the "
+        f"captured run; {len(eng._session.graphs)} graphs {sorted(eng._session.graphs.keys())}")
+    say(f"  tokens/s captured: speculative {stats['tokens'] / spec_wall:.1f} ({spec_wall:.3f} "
+        f"s), plain {plain_stats['tokens'] / plain_wall:.1f} ({plain_wall:.3f} s); eager "
+        f"speculative {e_stats['tokens'] / e_wall:.1f} ({e_wall:.3f} s)")
+    for label, en in (("eager", eager), ("captured", eng)):
+        profile_spec_round(torch, en, prompts[:8], sc, label=label)
+    del eager
 
     echo_tiers = api.QualitySpec((api.QualityTier("hi", 0, 0.0),
                                   api.QualityTier("echo", 0, 0.0)))
@@ -1086,9 +1324,13 @@ def speculative_and_static(torch, gen, path: Path, cfg) -> dict:
             for k in set(launches) | set(static_launches)}
 
 
-def profile_spec_round(torch, eng, prompts, sc):
+def profile_spec_round(torch, eng, prompts, sc, label=""):
     """Device time by kernel over one speculative round (k draft ticks and
-    one verify) at 8 speculating slots, after an admission step."""
+    one verify) at 8 speculating slots, after an admission step; then the
+    round's host syncs (one a draft tick, one for the verify) and its wall
+    time unprofiled."""
+    import warnings
+
     from torch.profiler import ProfilerActivity, profile
 
     eng.reset_stream()
@@ -1101,10 +1343,25 @@ def profile_spec_round(torch, eng, prompts, sc):
         info = eng.step()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            t0 = time.perf_counter()
+            info2 = eng.step()
+            plain_wall = (time.perf_counter() - t0) * 1e3
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    syncs = sum("synchroniz" in str(w.message) for w in caught)
+    if info2.drafted != 8 * sc.k or syncs != sc.k + 1:
+        raise AssertionError(f"{label} round: {info2.drafted} drafted, {syncs} host syncs "
+                             f"(want {8 * sc.k} and {sc.k + 1})")
     eng.run_until_drained()
     kern = device_kernels(prof)
     busy = sum(t for _, t, _ in kern)
-    say(f"  profile of one speculative round (8 slots, k={sc.k}, {info.drafted} drafted, "
+    say(f"  {label} round unprofiled: {plain_wall:.2f} ms wall, {syncs} host syncs "
+        f"({sc.k} draft ticks + 1 verify)")
+    say(f"  {label} profile of one speculative round (8 slots, k={sc.k}, {info.drafted} drafted, "
         f"{info.accepted} accepted): wall {wall_us / 1e3:.2f} ms, device busy "
         f"{busy / 1e3:.3f} ms ({100 * busy / wall_us:.1f}% of wall), "
         f"{sum(n for _, _, n in kern)} launches")
@@ -1358,30 +1615,31 @@ def speculative_wide(torch, gen, path: Path, cfg, slot_counts=WIDE_SLOTS,
         eng = art.engine(quality="mid", batch_slots=slots, device=device)
         plain_toks, _, plain_wall = _stream(torch, eng, prompts, quals, spec, None, slots)
         rounds = []
-        orig_verify = eng._verify
 
-        def verify(params, cache, window, starts, wlen, smask, *rest):
-            s = eng._session
-            clamp = {}
-            for slot in torch.nonzero(smask.cpu()).flatten().tolist():
-                req = s.sched.slot_req[slot]
-                clamp[slot] = (int(wlen[slot]) - 1, min(sc.k, req.max_new - len(req.out) - 1))
-            before = (qsq.launches["qsq_matmul_masked"] + qsq.launches["qsq_matmul"],
-                      dispatch.counters["gemm"])
-            out = orig_verify(params, cache, window, starts, wlen, smask, *rest)
-            rounds.append((window.numel(), clamp,
-                           qsq.launches["qsq_matmul_masked"] + qsq.launches["qsq_matmul"]
-                           - before[0], dispatch.counters["gemm"] - before[1]))
-            return out
+        def counted(orig):
+            def verify(s, window, starts, wlen, smask, demand):
+                clamp = {}
+                for slot in smask.nonzero()[0].tolist():
+                    req = s.sched.slot_req[slot]
+                    clamp[slot] = (int(wlen[slot]) - 1,
+                                   min(sc.k, req.max_new - len(req.out) - 1))
+                before = (qsq.launches["qsq_matmul_masked"] + qsq.launches["qsq_matmul"],
+                          dispatch.counters["gemm"])
+                out = orig(s, window, starts, wlen, smask, demand)
+                rounds.append((window.size, clamp,
+                               qsq.launches["qsq_matmul_masked"] + qsq.launches["qsq_matmul"]
+                               - before[0], dispatch.counters["gemm"] - before[1]))
+                return out
+            return verify
 
-        eng._verify = verify
+        _wrap(eng, "_verify_call", counted)
         qsq.reset_launches()
         ref.calls.clear()
         dispatch.reset_counters()
         try:
             toks, stats, wall = _stream(torch, eng, prompts, quals, spec, sc, slots)
         finally:
-            eng._verify = orig_verify
+            del eng._verify_call
         words = eng._session.phase_words
         tr = dispatch.traffic
         if toks != plain_toks:
@@ -1664,6 +1922,102 @@ def packed_path(torch, gen, cfg, steps=6, device="cuda") -> tuple[dict, dict]:
     return launches, errs
 
 
+# --------------------------------------------------------------------------
+# Phase 11: the other dense configs
+# --------------------------------------------------------------------------
+def phi4_full_width(torch, workdir: Path) -> dict:
+    """phi4-mini-3.8b at its published widths and depth (random weights from
+    seed 0) through the main path: compress, save, load(verify=True),
+    engine(quality="mid"), the mixed-tier stream eager and captured (K1-K4),
+    then a speculative stream whose tokens equal plain decode."""
+    from repro_torch import api
+    from repro_torch.configs import get_arch
+
+    cfg = get_arch("phi4_mini_3_8b")
+    art, path, t_save, t_load = compress_saved(torch, workdir, cfg, "phi4_mini_3_8b")
+    say(f"  phi4-mini-3.8b ({cfg.n_layers} layers, d {cfg.d_model}, vocab {cfg.vocab}): "
+        f"artifact {path.stat().st_size / 2**30:.2f} GiB, compress+save {t_save:.1f} s, "
+        f"load(verify) {t_load:.1f} s")
+    path.unlink()
+    e, c, eng = eager_and_captured(torch, art, cfg, "phi4-mini-3.8b")
+    graph_logits_equal(torch, eng, "phi4-mini-3.8b")
+    prompts = stream_prompts(torch, cfg)[:8]
+    quals = ["hi" if i % 2 == 0 else "mid" for i in range(8)]
+    spec = [(i // 2) % 2 == 0 for i in range(8)]
+    sc = api.SpecConfig("lo", k=W_VERIFY - 1)
+    _stream(torch, eng, prompts, quals, spec, None)  # the captures of both streams
+    plain, _, plain_wall = _stream(torch, eng, prompts, quals, spec, None)
+    _stream(torch, eng, prompts, quals, spec, sc)
+    toks, stats, wall = _stream(torch, eng, prompts, quals, spec, sc)
+    if toks != plain or stats["drafted"] == 0:
+        raise AssertionError(f"phi4-mini speculative tokens differ from plain decode "
+                             f"(drafted {stats['drafted']})")
+    say(f"  phi4-mini-3.8b: 8 requests x {MAX_NEW} tokens, half speculating with "
+        f"SpecConfig('lo', {sc.k}), captured: tokens identical to plain decode; drafted "
+        f"{stats['drafted']}, accepted {stats['accepted']}; tokens/s speculative "
+        f"{stats['tokens'] / wall:.1f}, plain {len(prompts) * MAX_NEW / plain_wall:.1f}")
+    eager = art.engine(quality="mid", batch_slots=8, device="cuda", eager=True)
+    for label, en in (("eager", eager), ("captured", eng)):
+        profile_decode(torch, en, prompts, TIER_NAMES, label=f"phi4-mini {label}")
+    del eager, eng, art
+    return c["launches"]
+
+
+def reduced_full_width(torch, workdir: Path) -> None:
+    """qwen3-14b and deepseek-7b at their published widths, cut to 2 layers
+    (random weights from seed 0), served a few greedy tokens at mixed tiers
+    through the captured engine (K1-K4, the long-K ``wd`` on the GEMM's
+    16-row tiles); then each smoke config of the three other dense configs
+    gives the CPU's tokens on the card."""
+    import gc
+
+    from repro_torch import api
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import qsq, ref
+    from repro_torch.models.api import Model
+    from repro_torch.models.base import init_params
+
+    for arch in ("qwen3_14b", "deepseek_7b"):
+        full = get_arch(arch)
+        cfg = dataclasses.replace(full, n_layers=2)
+        model = Model(cfg)
+        params = init_params(model.param_descs(), torch.Generator(device="cuda").manual_seed(0),
+                             device="cuda")
+        art = api.compress(model, params, tiers=serving_tiers(api), device="cuda")
+        del params
+        eng = art.engine(quality="mid", batch_slots=4, device="cuda")
+        rng = torch.Generator().manual_seed(6)
+        prompts = [torch.randint(0, cfg.vocab, (n,), generator=rng).tolist()
+                   for n in (5, 17, 40, 64)]
+        out = []
+        for run in range(2):  # the second run replays the first one's graphs
+            qsq.reset_launches()
+            ref.calls.clear()
+            eng.reset_stream()
+            rids = [eng.submit(p, max_new=4, quality=TIER_NAMES[i % 3])
+                    for i, p in enumerate(prompts)]
+            eng.run_until_drained()
+            out.append([eng.poll(r).tokens for r in rids])
+        launches = dict(qsq.launches)
+        if out[0] != out[1] or not all(len(t) == 4 and all(0 <= x < cfg.vocab for x in t)
+                                       for t in out[1]):
+            raise AssertionError(f"{cfg.name} (2 layers): tokens {out}")
+        missing = [k for k in KERNELS if not launches.get(k)]
+        fma = {k: v for k, v in launches.items() if k.endswith(":fma")}
+        if missing or fma or sum(ref.calls.values()):
+            raise AssertionError(f"{cfg.name} (2 layers): kernels missing {missing}, FMA "
+                                 f"route {fma}, plain versions {dict(ref.calls)}")
+        say(f"  {full.name} reduced: n_layers {full.n_layers} -> 2 at the published widths "
+            f"(d {cfg.d_model}, {cfg.n_heads}/{cfg.n_kv} heads of {cfg.hd}, d_ff {cfg.d_ff}, "
+            f"vocab {cfg.vocab}); 4 mixed-tier requests x 4 greedy tokens, captured, twice: "
+            f"identical, in vocab; launches {launches}; FMA route 0, plain versions 0")
+        del eng, art
+        gc.collect()
+        torch.cuda.empty_cache()
+    for arch in ("phi4_mini_3_8b", "qwen3_14b", "deepseek_7b"):
+        card_vs_cpu(torch, workdir, cfg=get_arch(arch, smoke=True))
+
+
 def main() -> int:
     import torch
 
@@ -1702,6 +2056,8 @@ def main() -> int:
     n = check_kernels(torch, gen, sign_mag=False, plane_major=False)
     say(f"    {n} checks passed: f32 bound, masked == truncated bit for bit (every variant)")
     table2 = time_kernels(torch, gen, flush, sign_mag=False, plane_major=False)
+    say("[2] K1-K4 at the packed shapes of phi4-mini-3.8b, qwen3-14b and deepseek-7b")
+    dense = dense_shapes(torch, gen, flush)
     del flush
 
     workdir = ROOT / "build" / "smoke"
@@ -1712,7 +2068,6 @@ def main() -> int:
     launches, art_path = serve_full_width(torch, workdir, get_arch("smollm_135m"))
     say("[4] card against CPU at the 2-layer d64 test config")
     card_vs_cpu(torch, workdir)
-    (workdir / "d64.edge.npz").unlink()
 
     say("[5] the encoder K5 against its plain version")
     n5, k5_err = check_quantize(torch, gen)
@@ -1740,6 +2095,10 @@ def main() -> int:
     paper_pipeline(torch, workdir)
     say("[10] full-width smollm-135m served from pack_params (Table II planes)")
     packed_launches, packed_errs = packed_path(torch, gen, get_arch("smollm_135m"))
+    say("[11] full-width phi4-mini-3.8b, eager and captured; qwen3-14b and deepseek-7b at 2 "
+        "layers; the three smoke configs, card against CPU")
+    phi4_launches = phi4_full_width(torch, workdir)
+    reduced_full_width(torch, workdir)
 
     for name, row in rows.items():
         row["launches"] = launches.get(name, 0)
@@ -1750,6 +2109,10 @@ def main() -> int:
     for name, e in errs.items():
         rows[name]["max_abs_err"] = e
         rows[name]["launches_packed_params"] = packed_launches.get(name, 0)
+        rows[name]["launches_phi4_mini"] = phi4_launches.get(name, 0)
+        rows[name].update(dense_shapes_ms=dense[name]["ms"],
+                          dense_shapes_library_ms=dense[name]["library_ms"],
+                          dense_shapes_bound_ms=dense[name]["bound_ms"])
         rows[name]["packed_params_max_abs_err"] = packed_errs.get(name)
         rows[name].update(table2_ms=table2[name]["ms"], table2_plain_ms=table2[name]["plain_ms"],
                           table2_library_ms=table2[name]["library_ms"],

@@ -59,7 +59,7 @@ class ArchConfig:
         return self.head_dim or self.d_model // self.n_heads
 
 
-ARCH_IDS = ["smollm_135m"]
+ARCH_IDS = ["smollm_135m", "phi4_mini_3_8b", "qwen3_14b", "deepseek_7b"]
 
 
 def canonical(arch_id: str) -> str:

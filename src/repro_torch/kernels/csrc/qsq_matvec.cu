@@ -1,5 +1,7 @@
 // K1 qsq_matvec and K2 qsq_matvec_masked: the decode-shape GEMV
-// x (M <= 16, K) @ decode(planes, scales) (K, N) -> (M, N) f32.
+// x (M <= 16, K) @ decode(planes, scales) (K, N) -> (M, N) f32.  The
+// tensor-core route also takes the GEMM wrappers' calls whose K is too long
+// for 64 resident x rows (any M, one 16-row tile a block along grid y).
 //
 // Replaces: src/repro/kernels/qsq_matvec.py:183 qsq_matvec
 //           (_qsq_matvec_kernel) and :119 qsq_matvec_masked
@@ -138,9 +140,12 @@ int launch(const void* x, const void* planes, const void* scales,
            int x_bf16, int sign_mag, int plane_major, int n_planes,
            int demand_drop, int nt, int wn, int wk, int cs, int persist,
            void* stream) {
-  if (M < 1 || M > kMMax || K % 32 || G % 16 || K % G) return -1;
+  if (M < 1 || K % 32 || G % 16 || K % G) return -1;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (x_bf16 && nt > 0) {  // the tensor-core route (qsq_mma.cuh), one 16-row tile
+  // The tensor-core route (qsq_mma.cuh): 16-row tiles, one a block along
+  // grid y.  Any M: the GEMM wrappers take this route where K is too long
+  // for the GEMM's 64 resident x rows (kernels/qsq.py launch_plan).
+  if (x_bf16 && nt > 0) {
     qsq::mma::Args a = {};
     a.x = static_cast<const __nv_bfloat16*>(x);
     a.planes = static_cast<const int32_t*>(planes);
@@ -154,6 +159,7 @@ int launch(const void* x, const void* planes, const void* scales,
     if (nt == 2) return qsq::mma::launch<1, 2, MASKED>(a, n_planes, sign_mag, plane_major, s);
     return -1;
   }
+  if (M > kMMax) return -1;
   if (x_bf16)  // a plan of the FMA route: x too large to stage in shared memory
     launch_t<__nv_bfloat16, MASKED>(x, planes, scales, plane_mask, out, M, K, N, G,
                                     sign_mag, plane_major, n_planes, demand_drop, s);

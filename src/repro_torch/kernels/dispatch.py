@@ -15,6 +15,13 @@ across cached dispatches; the port runs eagerly and counts each one.)
 Inside :func:`dispatch_phase` every call also adds its plane words under
 ``"phase:<label>:plane_words_read|full"``, per call as well.
 
+A step replayed from a CUDA graph runs no Python, so no call counts.
+The engine records, with :func:`record_counts`, what a step's calls add
+to :data:`counters`, :data:`traffic` and ``kernels.qsq.launches`` while
+it is captured (the capture launches nothing, so nothing stays counted),
+and :func:`add_counts` adds that on every replay, phase words under the
+replay's own :func:`dispatch_phase` label: the counts stay per call.
+
 Inside :func:`verify_row_blocks` a call of more than
 :data:`~repro_torch.kernels.qsq.SAME_PLAN_ROWS` rows runs as several
 launches of at most that many rows each (the speculative verify, so each
@@ -55,13 +62,49 @@ _phase: str = ""
 # most rows one launch may take (0 = any), set only through verify_row_blocks()
 _block_rows: int = 0
 
-__all__ = ["GEMV_M_MAX", "MASK_VARIANTS", "Plan", "counters", "dispatch_phase",
-           "packed_matmul", "plan", "reset_counters", "traffic", "verify_row_blocks"]
+__all__ = ["GEMV_M_MAX", "MASK_VARIANTS", "Plan", "add_counts", "counters", "dispatch_phase",
+           "packed_matmul", "plan", "record_counts", "reset_counters", "traffic",
+           "verify_row_blocks"]
 
 
 def reset_counters() -> None:
     counters.clear()
     traffic.clear()
+
+
+def _all_counters() -> tuple[collections.Counter, ...]:
+    return counters, traffic, qsq.launches
+
+
+@contextlib.contextmanager
+def record_counts():
+    """Count nothing inside the block: the yielded list receives, on exit,
+    what the block's calls would have added to (:data:`counters`,
+    :data:`traffic`, ``qsq.launches``), phase words left out.  The engine
+    records a step's capture (or warm-up) with it."""
+    global _phase
+    before = [collections.Counter(c) for c in _all_counters()]
+    prev, _phase = _phase, ""
+    delta: list[collections.Counter] = []
+    try:
+        yield delta
+    finally:
+        _phase = prev
+        for c, b in zip(_all_counters(), before, strict=True):
+            delta.append(c - b)
+            c.clear()
+            c.update(b)
+
+
+def add_counts(delta: list[collections.Counter]) -> None:
+    """Add a recorded step's counts, as its calls would have on a run:
+    inside :func:`dispatch_phase` its plane words also under the phase."""
+    for c, d in zip(_all_counters(), delta, strict=True):
+        c.update(d)
+    if _phase:
+        t = delta[1]
+        traffic[f"phase:{_phase}:plane_words_read"] += t["plane_words_read"]
+        traffic[f"phase:{_phase}:plane_words_full"] += t["plane_words_full"]
 
 
 @contextlib.contextmanager

@@ -35,7 +35,8 @@ MAX_WARPS = 8  # 256 threads a block
 SMEM_MAX = 200 * 1024  # dynamic shared memory the kernels allow themselves
 
 # launches of each kernel, by wrapper name; counted only where a kernel
-# is launched (chip_smoke.py resets and reads them around the main path)
+# is launched (chip_smoke.py resets and reads them around the main path).
+# "<name>:fma" also counts the bf16 calls that took the FMA route.
 launches: collections.Counter = collections.Counter()
 
 _X_DTYPES = (torch.float32, torch.bfloat16)
@@ -53,7 +54,7 @@ class LaunchPlan(NamedTuple):
     (M, K, N, G, x dtype), never on ``demand_drop`` or the masks, so masked
     rows stay bit-identical to the unmasked kernel on truncated planes."""
     route: str  # "mma": tensor cores (bf16 x, G % 16 == 0); "fma": the f32 FMA kernel
-    mt: int  # 16-row tiles per warp: 1 (GEMV), 4 (GEMM)
+    mt: int  # 16-row tiles per warp: 1 (GEMV; a long-K GEMM), 4 (GEMM)
     nt: int  # 8-column tiles per warp
     wn: int  # warps along N in a block
     wk: int  # warps along K in a block, each a contiguous K slice
@@ -97,6 +98,9 @@ class LaunchPlan(NamedTuple):
         return [(32 * (i * kw // s), 32 * ((i + 1) * kw // s)) for i in range(s)]
 
 
+FMA = LaunchPlan("fma", 0, 0, 0, 0, 0)
+
+
 @functools.lru_cache(maxsize=1024)  # a pure function of its arguments, called per launch
 def launch_plan(kind: str, m: int, k: int, n: int, group_size: int,
                 x_dtype: torch.dtype) -> LaunchPlan:
@@ -110,20 +114,42 @@ def launch_plan(kind: str, m: int, k: int, n: int, group_size: int,
 
     At one row tile (the GEMV, and the GEMM up to :data:`SAME_PLAN_ROWS`
     rows) a plan must fit both kernels' shared memory, so the two kinds
-    take the same split and their rows agree bit for bit."""
+    take the same split and their rows agree bit for bit.  Two cases fit
+    the GEMV's 16 rows of x alone: where the GEMM's 64 resident x rows fit
+    at no cluster size (long K: deepseek-7b's and qwen3-14b's ``wd``), and
+    a persistent GEMV over very wide N (at least four 64-column tiles an
+    SM: the LM heads), which a 64-row tile would cut into many short K
+    slices.  There, and wherever its 64-row tile does not fit the split,
+    the GEMM runs on the GEMV's 16-row tiles (``mt = 1``, one tile a block
+    along the grid's y); at one row tile it still takes the GEMV's split."""
     if x_dtype != torch.bfloat16 or group_size % 16:
-        return LaunchPlan("fma", 0, 0, 0, 0, 0)
+        return FMA
+    if kind == "gemv" or m <= SAME_PLAN_ROWS:  # one row tile: the GEMV's split
+        plan = _split(k, n, 1, (1, 4))
+        if plan is None or (not plan.persist and -(-n // 64) >= 4 * SMS):
+            gemv = _split(k, n, 1, (1,))  # a split that fits the GEMV's rows alone
+            if plan is None or (gemv is not None and gemv.persist):
+                plan = gemv
+    else:
+        plan = _split(k, n, -(-m // 64), (4,)) or _split(k, n, -(-m // 16), (1,))
+    if plan is None:
+        return FMA
+    if kind == "gemv" or plan._replace(mt=4).smem_bytes(k) > SMEM_MAX:
+        return plan._replace(mt=1)
+    return plan._replace(mt=4)
+
+
+def _split(k: int, n: int, row_tiles: int, heights: tuple[int, ...]) -> LaunchPlan | None:
+    """The split of :func:`launch_plan` over ``row_tiles`` row tiles, whose
+    shared memory fits every tile height in ``heights`` (16-row tiles per
+    warp: 1 or 4), or None."""
     kw = k // 32
-    mt = 1 if kind == "gemv" else 4
-    row_tiles = -(-m // (16 * mt))
 
-    def smem(plan: LaunchPlan) -> int:
-        if row_tiles > 1:
-            return plan.smem_bytes(k)
-        return max(plan._replace(mt=t).smem_bytes(k) for t in (1, 4))
+    def fits(plan: LaunchPlan) -> bool:
+        return all(plan._replace(mt=t).smem_bytes(k) <= SMEM_MAX for t in heights)
 
-    plan = LaunchPlan("mma", mt, 2, MAX_WARPS, 1, 1, persist=1)
-    if -(-n // 64) * row_tiles >= 2 * SMS and smem(plan) <= SMEM_MAX:
+    plan = LaunchPlan("mma", heights[-1], 2, MAX_WARPS, 1, 1, persist=1)
+    if -(-n // 64) * row_tiles >= 2 * SMS and fits(plan):
         return plan
     wk = min(4, kw)
     for wn in (2, 1):
@@ -133,16 +159,14 @@ def launch_plan(kind: str, m: int, k: int, n: int, group_size: int,
             cs *= 2
         if tiles * cs >= SMS:
             break
-    plan = LaunchPlan("mma", mt, 1, wn, wk, cs)
-    while smem(plan) > SMEM_MAX and 2 * plan.cs <= CLUSTER_MAX:
+    plan = LaunchPlan("mma", heights[-1], 1, wn, wk, cs)
+    while not fits(plan) and 2 * plan.cs <= CLUSTER_MAX:
         # x over a shorter K range: more blocks along K, fewer warps if need be
         wk = plan.wk if 4 * plan.cs * plan.wk <= 2 * kw else max(1, plan.wk // 2)
         if 2 * plan.cs * wk > kw:
             break
         plan = plan._replace(cs=2 * plan.cs, wk=wk)
-    if smem(plan) > SMEM_MAX:
-        return LaunchPlan("fma", 0, 0, 0, 0, 0)
-    return plan
+    return plan if fits(plan) else None
 
 
 def _shape(x, planes, scales, group_size: int, plane_major: bool,
@@ -199,7 +223,10 @@ def _launch(name: str, x, planes, scales, plane_mask, group_size: int,
     p = launch_plan("gemv" if name.startswith("qsq_matvec") else "gemm", m, k, n,
                     group_size, x.dtype)
     out = torch.empty((m, n), dtype=torch.float32, device=x.device)
-    fn = getattr(build.load(), name)
+    # a GEMM plan on 16-row tiles launches the GEMV's instantiation of the
+    # template (its C entry takes any M on the tensor-core route)
+    entry = name.replace("qsq_matmul", "qsq_matvec") if p.mt == 1 else name
+    fn = getattr(build.load(), entry)
     ptrs = [x.data_ptr()] + ([plane_mask.data_ptr()] if plane_mask is not None else [])
     ptrs += [planes.data_ptr(), scales.data_ptr(), out.data_ptr()]
     rc = fn(*ptrs, m, k, n, group_size, int(x.dtype == torch.bfloat16),
@@ -209,6 +236,8 @@ def _launch(name: str, x, planes, scales, plane_mask, group_size: int,
         raise RuntimeError(f"{name} launch failed (M={m}, K={k}, N={n}, "
                            f"G={group_size}): CUDA error {rc}")
     launches[name] += 1
+    if p.route == "fma" and x.dtype == torch.bfloat16:
+        launches[f"{name}:fma"] += 1  # a bf16 call off the tensor-core route
     return out
 
 

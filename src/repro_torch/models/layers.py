@@ -17,6 +17,7 @@ than being served or trained wrong.
 """
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import numpy as np
@@ -64,13 +65,21 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Te
     return (y * scale.to(torch.float32)).to(x.dtype)
 
 
+@functools.lru_cache(maxsize=64)
+def _rope_freqs(hd: int, theta: float, device: torch.device) -> torch.Tensor:
+    """The (hd/2,) f32 RoPE frequencies on ``device``, copied there once: a
+    captured serving step may not copy from the host."""
+    half = hd // 2
+    return torch.from_numpy(
+        1.0 / (theta ** (np.arange(0, half, dtype=np.float32) * 2.0 / hd))).to(device)
+
+
 def rope(x: torch.Tensor, positions: torch.Tensor, theta: float = 10000.0) -> torch.Tensor:
     """x: (..., S, H, hd), positions: (..., S) -> same shape; the half-split
     convention (pairs are (i, i + hd/2))."""
     hd = x.shape[-1]
     half = hd // 2
-    freqs = torch.from_numpy(
-        1.0 / (theta ** (np.arange(0, half, dtype=np.float32) * 2.0 / hd))).to(x.device)
+    freqs = _rope_freqs(hd, float(theta), x.device)
     ang = positions[..., None].to(torch.float32) * freqs  # (..., S, half)
     cos = torch.cos(ang)[..., None, :]
     sin = torch.sin(ang)[..., None, :]
@@ -192,7 +201,8 @@ def decode_attention(p: dict, x: torch.Tensor, cache: KVCache, *, theta: float =
     """One-token decode: x (B, 1, d).  Each slot writes its k/v at its own
     ``pos[b]`` — IN PLACE into ``cache.k``/``cache.v`` (the live cache is
     updated where it lies, no copy) — and attends over
-    ``pad[b] <= idx <= pos[b]``.  Inactive lanes do not advance ``pos``."""
+    ``pad[b] <= idx <= pos[b]``.  ``pos`` advances in place too; inactive
+    lanes do not advance it."""
     _no_window(window)
     b = x.shape[0]
     t = cache.k.shape[1]
@@ -213,7 +223,8 @@ def decode_attention(p: dict, x: torch.Tensor, cache: KVCache, *, theta: float =
     y = _out_proj(p, out, x)
     step = (torch.ones((b,), dtype=torch.int32, device=x.device) if active is None
             else active.to(torch.int32))
-    return y, KVCache(k=k, v=v, pos=cache.pos + step, pad=cache.pad)
+    cache.pos.add_(step)
+    return y, cache
 
 
 def prefill_attention(p: dict, x: torch.Tensor, cache: KVCache, *,
@@ -259,8 +270,8 @@ def verify_attention(p: dict, x: torch.Tensor, cache: KVCache, *, start: torch.T
     would see, through the decode step's own shapes (:func:`per_position`).
     Lanes with ``wlen == 0`` are untouched, ``pos`` included; their output
     is garbage the caller discards.  Written lanes get
-    ``pos = start + wlen``; the caller rolls it back to the accepted
-    prefix, and rejected entries stay in the cache, masked."""
+    ``pos = start + wlen``, in place; the caller rolls it back to the
+    accepted prefix, and rejected entries stay in the cache, masked."""
     b, w, _ = x.shape
     t = cache.k.shape[1]
     ar_w = torch.arange(w, dtype=torch.int32, device=x.device)
@@ -284,8 +295,8 @@ def verify_attention(p: dict, x: torch.Tensor, cache: KVCache, *, start: torch.T
     y = torch.cat([_out_proj(p, _gqa_scores_apply(q[:, j:j + 1].contiguous(), kq, vq,
                                                   valid[:, j, None, None, None, :]), x)
                    for j in range(w)], dim=1)
-    pos = torch.where(wlen > 0, start + wlen, cache.pos).to(torch.int32)
-    return y, KVCache(k=k, v=v, pos=pos, pad=cache.pad)
+    cache.pos.copy_(torch.where(wlen > 0, start + wlen, cache.pos))
+    return y, cache
 
 
 def per_position(fn, x: torch.Tensor) -> torch.Tensor:

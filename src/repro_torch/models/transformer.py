@@ -104,22 +104,20 @@ def lm_decode(params: dict, cfg: ArchConfig, cache: LMCache, tokens: torch.Tenso
               active: torch.Tensor | None = None, tiers: torch.Tensor | None = None,
               demand: int | None = None) -> tuple[torch.Tensor, LMCache]:
     """One decode token per slot: tokens (B, 1) -> logits (B, 1, vocab) f32.
-    The k/v of the new token are written into ``cache`` in place."""
+    The k/v of the new token and the advanced ``pos`` are written into
+    ``cache`` in place, which comes back as it went in."""
     x = L.embed(params["embed"], tokens, cfg.dtype)
     kv = cache.kv
-    pos = []
     for i in range(cfg.n_layers):
         bp = layer_params(params["blocks"], i)
-        h, c2 = L.decode_attention(
+        h, _ = L.decode_attention(
             bp["attn"], L.rmsnorm(x, bp["ln1"]), _layer_cache(kv, i),
             theta=cfg.rope_theta, window=cfg.window, active=active,
             tiers=tiers, demand=demand)
         x = x + h
         x = x + L.mlp(bp["mlp"], L.rmsnorm(x, bp["ln2"]), tiers=tiers, demand=demand)
-        pos.append(c2.pos)
     x = L.rmsnorm(x, params["final_norm"])
-    new_kv = L.KVCache(k=kv.k, v=kv.v, pos=torch.stack(pos), pad=kv.pad)
-    return L.lm_head(params["embed"], x, tiers=tiers, demand=demand), LMCache(kv=new_kv)
+    return L.lm_head(params["embed"], x, tiers=tiers, demand=demand), cache
 
 
 def lm_prefill(params: dict, cfg: ArchConfig, cache: LMCache, tokens: torch.Tensor,
@@ -159,8 +157,9 @@ def lm_verify(params: dict, cfg: ArchConfig, cache: LMCache, tokens: torch.Tenso
               demand: int | None = None) -> tuple[torch.Tensor, LMCache]:
     """Batched multi-position forward for self-speculative verify: tokens
     (B, W) windows land at cache indices ``[start, start + wlen)`` of each
-    lane (in place, over the draft-tier KV), at the lane's verify tier, and
-    logits (B, W, vocab) f32 come back for every window position.  The
+    lane (in place, over the draft-tier KV, ``pos`` too), at the lane's
+    verify tier, and logits (B, W, vocab) f32 come back for every window
+    position.  The
     packed matmuls run on the whole window (M = B x W, launched in row
     blocks of at most ``SAME_PLAN_ROWS``, each with the GEMV's split), the
     norms and the attention position by position (``layers.per_position``),
@@ -177,25 +176,25 @@ def lm_verify(params: dict, cfg: ArchConfig, cache: LMCache, tokens: torch.Tenso
 def _verify(params, cfg, cache, tokens, start, wlen, tiers, demand):
     x = L.embed(params["embed"], tokens, cfg.dtype)
     kv = cache.kv
-    pos = []
     for i in range(cfg.n_layers):
         bp = layer_params(params["blocks"], i)
         y = L.per_position(lambda r, s=bp["ln1"]: L.rmsnorm(r, s), x)
-        h, c2 = L.verify_attention(bp["attn"], y, _layer_cache(kv, i), start=start, wlen=wlen,
-                                   theta=cfg.rope_theta, tiers=tiers, demand=demand)
+        h, _ = L.verify_attention(bp["attn"], y, _layer_cache(kv, i), start=start, wlen=wlen,
+                                  theta=cfg.rope_theta, tiers=tiers, demand=demand)
         x = x + h
         y = L.per_position(lambda r, s=bp["ln2"]: L.rmsnorm(r, s), x)
         x = x + L.mlp(bp["mlp"], y, tiers=tiers, demand=demand)
-        pos.append(c2.pos)
     x = L.per_position(lambda r: L.rmsnorm(r, params["final_norm"]), x)
-    new_kv = L.KVCache(k=kv.k, v=kv.v, pos=torch.stack(pos), pad=kv.pad)
-    return L.lm_head(params["embed"], x, tiers=tiers, demand=demand), LMCache(kv=new_kv)
+    return L.lm_head(params["embed"], x, tiers=tiers, demand=demand), cache
 
 
-def lm_cache_insert_slot(live: LMCache, one: LMCache, slot: int) -> LMCache:
+def lm_cache_insert_slot(live: LMCache, one: LMCache, slot) -> LMCache:
     """Admit a request: write a prefilled single-slot cache into lane
     ``slot`` of the live multi-slot cache, in place (batch is axis 1 of
-    every ``kv`` leaf; axis 0 is the layer stack)."""
+    every ``kv`` leaf; axis 0 is the layer stack).  ``slot`` is an int or
+    a one-element device tensor, the JAX package's traced scalar: the
+    engine's admission then replays one captured graph for every lane."""
+    idx = torch.as_tensor(slot, device=live.kv.k.device).reshape(1).to(torch.int64)
     for dst, src in zip(live.kv, one.kv, strict=True):
-        dst[:, slot] = src[:, 0].to(dst.dtype)
+        dst.index_copy_(1, idx, src.to(dst.dtype))
     return live

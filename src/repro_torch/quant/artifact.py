@@ -322,9 +322,11 @@ class EdgeArtifact:
         return bool(self.rank) or not drops_any
 
     def engine(self, quality: str = "hi", serve_cfg=None,
-               per_request: bool | None = None, device="cuda", **serve_kw):
+               per_request: bool | None = None, device="cuda", eager: bool = False,
+               **serve_kw):
         """Build a ServeEngine on ``device`` at a named tier; per-request
-        quality is on whenever the config can serve it."""
+        quality is on whenever the config can serve it.  ``eager`` runs the
+        continuous steps eagerly instead of as CUDA graphs."""
         from repro_torch.serve.engine import ServeConfig, ServeEngine
 
         if serve_cfg is not None and serve_kw:
@@ -345,7 +347,7 @@ class EdgeArtifact:
         device = resolve_device(device)
         params, n_packed = self.serve_params(quality, packed=cfg.packed,
                                              per_request=per_request, device=device)
-        eng = ServeEngine(self.model(), params, cfg, device=device)
+        eng = ServeEngine(self.model(), params, cfg, device=device, eager=eager)
         eng.n_packed_leaves = n_packed
         eng.artifact = self
         eng.quality = quality

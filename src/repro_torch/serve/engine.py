@@ -26,6 +26,14 @@ back on the device and one host sync at the end.  Sampling draws from a
 The cost clock, deadlines, cancellation, ``QualityShed`` admission,
 ``stream_stats`` and the analytic byte meter follow the JAX engine
 exactly.
+
+The continuous stream's three steps (decode, admission, verify) read
+their inputs from static buffers of the session and, on a CUDA device,
+run as CUDA graphs captured once per ``demand`` (the verify once per
+(demand, window width)), where the JAX engine traces once
+(``serve/graphs.py``).  ``ServeEngine(..., eager=True)`` runs them
+eagerly instead, the counterpart of ``jax.disable_jit``; on the CPU they
+always run eagerly, on the same buffers.
 """
 from __future__ import annotations
 
@@ -39,6 +47,7 @@ import torch
 from repro_torch.kernels import dispatch
 from repro_torch.models.base import init_params, resolve_device
 from repro_torch.serve.admission import ADMIT, REJECT, SHED, AdmissionPolicy, LoadView
+from repro_torch.serve.graphs import StepGraphs
 from repro_torch.serve.scheduler import (
     FinishReason,
     Request,
@@ -88,12 +97,34 @@ class StepInfo:
     accepted: int = 0
 
 
+class _Static:
+    """A static device buffer of the captured steps, and its pinned host twin.
+
+    :meth:`put` copies host values in without a host sync.  Every step ends
+    with its one sync, and each buffer is put once a step, so a twin is
+    never rewritten while its copy is still queued."""
+
+    def __init__(self, shape, dtype, device: torch.device):
+        self.dev = torch.zeros(shape, dtype=dtype, device=device)
+        self.host = (torch.zeros(shape, dtype=dtype, pin_memory=True)
+                     if device.type == "cuda" else None)
+
+    def put(self, a) -> torch.Tensor:
+        if self.host is None:
+            self.dev.copy_(torch.as_tensor(np.asarray(a)))
+        else:
+            self.host.numpy()[...] = a
+            self.dev.copy_(self.host, non_blocking=True)
+        return self.dev
+
+
 class _Session:
     """Device state of one continuous stream: the live multi-slot cache, the
-    per-slot current tokens / active mask / tiers, and the host scheduler."""
+    steps' static input buffers and their graphs, and the host scheduler
+    with the per-slot current tokens / active mask / tiers."""
 
     def __init__(self, model, slots: int, prefill_len: int, cache_len: int,
-                 device, max_queue: int | None = None):
+                 device, max_queue: int | None = None, eager: bool = False, pool=None):
         if prefill_len < 1:
             raise ValueError(f"prefill width must be >= 1, got {prefill_len}")
         if prefill_len >= cache_len:
@@ -101,10 +132,28 @@ class _Session:
                              f"{prefill_len}-token prefill window")
         self.prefill_len = prefill_len
         self.cache_len = cache_len
-        self.sched = Scheduler(slots, max_queue=max_queue)
+        self.max_queue = max_queue
+        self.device = device
         self.cache = init_params(model.cache_descs(slots, cache_len), device=device)
         # zeroed batch-1 cache reused by every admission (prefill never writes it)
         self.zero_slot_cache = init_params(model.cache_descs(1, cache_len), device=device)
+        i32 = torch.int32
+        self.b_cur = _Static((slots, 1), i32, device)
+        self.b_active = _Static((slots,), i32, device)
+        self.b_tiers = _Static((slots,), i32, device)
+        self.b_toks = _Static((1, prefill_len), i32, device)
+        self.b_lens = _Static((1,), i32, device)
+        self.b_slot = _Static((1,), torch.int64, device)
+        self.b_tier = _Static((1,), i32, device)
+        self.b_start = _Static((slots,), i32, device)
+        self.b_wlen = _Static((slots,), i32, device)
+        self.b_spec = _Static((slots,), i32, device)
+        self.b_window: dict[int, _Static] = {}  # by window width W
+        self.graphs = StepGraphs(device, eager, pool)
+        self._fresh(slots)
+
+    def _fresh(self, slots: int) -> None:
+        self.sched = Scheduler(slots, max_queue=self.max_queue)
         self.cur = np.zeros((slots, 1), np.int32)
         self.active = np.zeros((slots,), np.int32)
         self.tiers = np.zeros((slots,), np.int32)
@@ -119,13 +168,30 @@ class _Session:
         self.drafted = 0
         self.accepted = 0
 
+    def reset(self) -> None:
+        """A new stream on the same buffers (the graphs stay valid): host
+        state anew and the cache zeroed in place."""
+        for t in self.cache.kv:
+            t.zero_()
+        self._fresh(self.sched.n_slots)
+
+    def window(self, w: int) -> _Static:
+        if w not in self.b_window:
+            self.b_window[w] = _Static((self.sched.n_slots, w), torch.int32, self.device)
+        return self.b_window[w]
+
 
 class ServeEngine:
-    def __init__(self, model, params, cfg: ServeConfig, device="cuda"):
+    def __init__(self, model, params, cfg: ServeConfig, device="cuda", eager: bool = False):
         self.model = model
         self.cfg = cfg
         self.params = params
         self.device = resolve_device(device)
+        # run the continuous steps eagerly rather than as CUDA graphs; else
+        # every session's graphs share one memory pool
+        self.eager = eager
+        self._pool = (torch.cuda.graph_pool_handle()
+                      if self.device.type == "cuda" and not eager else None)
         self.n_packed_leaves = 0
         self.artifact = None
         self.quality: str | None = None
@@ -196,7 +262,7 @@ class ServeEngine:
         if self.has_work:
             raise RuntimeError("cannot re-dial quality while a continuous stream has "
                                "live requests; run_until_drained() first")
-        self._session = None
+        self._session = None  # its graphs hold the old params
         self._plane_words_cache.clear()
         self.params, self.n_packed_leaves = self.artifact.serve_params(
             quality, packed=self.cfg.packed, device=self.device)
@@ -215,8 +281,46 @@ class ServeEngine:
             self._session = _Session(self.model, self.cfg.batch_slots,
                                      prefill_len=self.cfg.max_prompt,
                                      cache_len=self.cfg.max_len, device=self.device,
-                                     max_queue=self.cfg.max_queue)
+                                     max_queue=self.cfg.max_queue, eager=self.eager,
+                                     pool=self._pool)
         return self._session
+
+    # -- the captured steps ---------------------------------------------------
+    # Each copies its inputs into the session's static buffers and runs its
+    # step under a key of static arguments only: never the slot, the tiers,
+    # the active mask or token values (those are buffer contents).
+    def _decode_call(self, s: _Session, active, tiers, demand: int) -> torch.Tensor:
+        """One continuous decode over all lanes -> next tokens (B,) on the device."""
+        cur, act, tr = s.b_cur.put(s.cur), s.b_active.put(active), s.b_tiers.put(tiers)
+        return s.graphs.run(
+            ("decode", demand),
+            lambda: self._cont_step(self.params, s.cache, cur, act, tr, demand)[0],
+            restore=(s.cache.kv.pos,))
+
+    def _admit_call(self, s: _Session, toks, length: int, slot: int, demand: int
+                    ) -> torch.Tensor:
+        """One admission into lane ``slot`` -> its first token () on the device."""
+        t, ln = s.b_toks.put(toks), s.b_lens.put([length])
+        sl, tr = s.b_slot.put([slot]), s.b_tier.put(s.tiers[slot:slot + 1])
+        return s.graphs.run(
+            ("admit", demand),
+            lambda: self._admit(self.params, s.zero_slot_cache, s.cache, t, ln, sl, tr,
+                                demand)[1],
+            restore=(s.cache.kv.pos,))
+
+    def _verify_call(self, s: _Session, window, starts, wlen, smask, demand: int
+                     ) -> torch.Tensor:
+        """One verify pass -> (B, W + 1): each lane's W verify tokens, then its
+        accepted count."""
+        win, st = s.window(window.shape[1]).put(window), s.b_start.put(starts)
+        wl, sp, tr = s.b_wlen.put(wlen), s.b_spec.put(smask), s.b_tiers.put(s.tiers)
+
+        def verify():
+            toks, acc, _ = self._verify(self.params, s.cache, win, st, wl, sp, tr, demand)
+            return torch.cat([toks, acc[:, None]], dim=1)
+
+        return s.graphs.run(("verify", demand, window.shape[1]), verify,
+                            restore=(s.cache.kv.pos,))
 
     def _admission_view(self, s: _Session) -> LoadView:
         names = (tuple(self.tier_names) if self.tier_names is not None
@@ -384,10 +488,7 @@ class ServeEngine:
             toks = np.zeros((1, s.prefill_len), np.int32)
             toks[0, s.prefill_len - len(req.tokens):] = req.tokens
             demand = int(s.tiers[slot])
-            s.cache, first = self._admit(
-                self.params, s.zero_slot_cache, s.cache, self._t(toks),
-                self._t(np.asarray([len(req.tokens)], np.int32)), slot,
-                self._t(s.tiers[slot:slot + 1]), demand)
+            first = self._admit_call(s, toks, len(req.tokens), slot, demand)
             cost += self._meter(s, demand)
             s.tokens_emitted += 1
             first = int(first)  # the admission's one host sync
@@ -422,8 +523,7 @@ class ServeEngine:
         elif live:
             demand = plane_demand(s.tiers[slot] for slot in live)
             demand_used = demand
-            nxt, s.cache = self._cont_step(self.params, s.cache, self._t(s.cur),
-                                           self._t(s.active), self._t(s.tiers), demand)
+            nxt = self._decode_call(s, s.active, s.tiers, demand)
             cost += self._meter(s, demand)
             s.tokens_emitted += len(live)
             nxt = nxt.cpu().numpy()  # the step's one host sync
@@ -479,9 +579,7 @@ class ServeEngine:
                 break  # every plain lane finished and every k_eff ran out
             demand = plane_demand(int(draft_tiers[slot]) for slot in live_now)
             with dispatch.dispatch_phase("draft"):
-                nxt, s.cache = self._cont_step(self.params, s.cache, self._t(s.cur),
-                                               self._t(draft_active), self._t(draft_tiers),
-                                               demand)
+                nxt = self._decode_call(s, draft_active, draft_tiers, demand)
             cost += self._meter(s, demand, "draft")
             nxt = nxt.cpu().numpy()  # the tick's one host sync
             for slot in live_now:
@@ -508,11 +606,9 @@ class ServeEngine:
             starts[slot] = start[slot]
         vdemand = plane_demand(int(s.tiers[slot]) for slot in spec)
         with dispatch.dispatch_phase("verify"):
-            toks, acc, s.cache = self._verify(self.params, s.cache, self._t(window),
-                                              self._t(starts), self._t(wlen), self._t(smask),
-                                              self._t(s.tiers), vdemand)
+            out = self._verify_call(s, window, starts, wlen, smask, vdemand)
         cost += self._meter(s, vdemand, "verify")
-        out = torch.cat([toks, acc[:, None]], dim=1).cpu().numpy()  # the round's last sync
+        out = out.cpu().numpy()  # the round's last sync
         drafted_n = accepted_n = 0
         for slot, (k_eff, _) in spec.items():
             a = int(out[slot, -1])
@@ -583,7 +679,9 @@ class ServeEngine:
         return s.now
 
     def reset_stream(self) -> None:
-        self._session = None
+        """Drop the stream's requests; a new stream reuses its buffers and graphs."""
+        if self._session is not None:
+            self._session.reset()
 
     def run_until_drained(self, max_ticks: int | None = None):
         """step() until the queue and every slot are empty; returns what
@@ -640,7 +738,8 @@ class ServeEngine:
         maxp = max(len(p) for p in prompts)
         saved = self._session
         self._session = _Session(self.model, self.cfg.batch_slots, prefill_len=maxp,
-                                 cache_len=maxp + max_new + 1, device=self.device)
+                                 cache_len=maxp + max_new + 1, device=self.device,
+                                 eager=self.eager, pool=self._pool)
         try:
             rids = [self.submit(p, max_new=max_new,
                                 quality=None if qualities is None else qualities[i])

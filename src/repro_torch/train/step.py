@@ -3,6 +3,9 @@
 PyTorch runs eagerly, so the builders return plain functions; ``demand``
 stays a Python int (at most one kernel specialisation per tier) and
 ``tiers``/``active`` stay tensors (a tier change is a data change).  The
+serving steps write every cache field they change in place, take no host
+sync and copy nothing from the host, so the engine can capture each as a
+CUDA graph (``serve/graphs.py``).  The
 train step differentiates the loss with autograd over plain tensor ops,
 QSQ-compresses the gradients (the K5 kernel on a card) and applies AdamW.
 """
@@ -81,11 +84,12 @@ def make_cache_prefill_step(model) -> Callable:
 
 def make_admit_step(model) -> Callable:
     """(params, zero_cache (batch-1), live_cache, toks (1, P), lens (1,),
-    slot (int), tier (1,), demand (int)) -> (live_cache, first_token ()).
+    slot (1,), tier (1,), demand (int)) -> (live_cache, first_token ()).
 
     Single-slot prefill at the request's own tier, lane insert into the live
     cache (in place) and the request's first greedy token argmaxed on the
-    device: the caller syncs on one int32."""
+    device: the caller syncs on one int32.  ``slot`` is a device tensor (an
+    int also works), so one captured admission serves every lane."""
     prefill = make_cache_prefill_step(model)
 
     def admit(params, zero_cache, live_cache, toks, lens, slot, tier, demand=0):
@@ -118,10 +122,11 @@ def make_verify_step(model) -> Callable:
     the device: row j of ``tokens`` is the verify tier's greedy choice
     after window position j, and ``accepted`` the longest prefix of drafts
     (``window[:, 1:]``) that match it, so a lane emits
-    ``tokens[:accepted + 1]``.  The KV rollback is one data change: each
-    speculating lane's ``pos`` becomes ``start + accepted + 1``, and the
-    rejected entries stay in the cache, masked until overwritten.  Lanes
-    with ``wlen == 0`` pass through untouched."""
+    ``tokens[:accepted + 1]``.  The KV rollback is one data change, made in
+    the caller's ``pos`` buffer: each speculating lane's ``pos`` becomes
+    ``start + accepted + 1``, and the rejected entries stay in the cache,
+    masked until overwritten.  Lanes with ``wlen == 0`` pass through
+    untouched."""
 
     def verify(params, cache, window, start, wlen, spec, tiers, demand=0):
         logits, cache = model.verify(params, cache, {
@@ -134,9 +139,9 @@ def make_verify_step(model) -> Callable:
         eq = (toks[:, : w - 1] == window[:, 1:]) & (
             torch.arange(w - 1, device=window.device)[None, :] < (wlen - 1)[:, None])
         accepted = torch.sum(torch.cumprod(eq.to(torch.int32), dim=1), dim=1).to(torch.int32)
-        kv = cache.kv
-        pos = torch.where(spec[None, :] > 0, (start + accepted + 1)[None, :], kv.pos)
-        return toks, accepted, type(cache)(kv=kv._replace(pos=pos.to(torch.int32)))
+        pos = cache.kv.pos
+        pos.copy_(torch.where(spec[None, :] > 0, (start + accepted + 1)[None, :], pos))
+        return toks, accepted, cache
 
     return verify
 

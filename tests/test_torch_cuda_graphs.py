@@ -1,0 +1,160 @@
+"""The serving steps captured as CUDA graphs, on a card.
+
+Every test here is marked ``cuda`` and skips without an NVIDIA GPU (a
+capture needs the card; on the CPU the engine runs the same static-buffer
+code without graphs, which ``test_torch_engine.py`` holds against the JAX
+engine).  The file imports no JAX:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda_graphs.py
+
+At a 2-layer bf16 config (d 64, G 16: the kernels' tensor-core route) the
+same artifact serves a mixed-tier stream with staggered arrivals, a
+cancel and speculating requests, once eagerly and once captured:
+
+* the captured tokens equal the eager ones;
+* ``no_recapture`` holds across admissions, evictions, a cancel and tier
+  flips once every key has been captured;
+* the byte meter equals the per-call dispatch traffic after replays, per
+  phase too, and the launch counts equal the eager run's;
+* there is one graph per demand (decode, admission) and per (demand,
+  window width) (verify), and each step syncs the host exactly once.
+"""
+import warnings
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from torch_port_scope import port_modules
+
+pytestmark = pytest.mark.cuda
+
+CFG = dict(name="graphs-bf16", family="dense", n_layers=2, d_model=64, n_heads=4, n_kv=2,
+           d_ff=128, vocab=256, remat=False)
+ENGINE = dict(quality="mid", batch_slots=4, max_prompt=8, max_len=32)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _port():
+    """Import the port for this file only (see ``torch_port_scope``)."""
+    global tapi, dispatch, qsq, no_recapture
+    with port_modules():
+        from repro_torch import api as tapi
+        from repro_torch.analysis import no_recapture
+        from repro_torch.kernels import dispatch, qsq
+        yield
+
+
+@pytest.fixture(scope="module")
+def art():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA graphs capture on the card)")
+    from repro_torch.configs.base import ArchConfig
+    from repro_torch.models.api import Model
+    from repro_torch.models.base import init_params
+
+    model = Model(ArchConfig(**CFG, dtype=torch.bfloat16))
+    params = init_params(model.param_descs(), torch.Generator(device="cuda").manual_seed(0),
+                         device="cuda")
+    return tapi.compress(model, params, device="cuda")
+
+
+def _stream(eng, cancel=True):
+    """Six requests on four slots: staggered arrivals, lanes re-used at
+    other tiers, two speculating from "lo", one cancelled mid-stream."""
+    eng.reset_stream()
+    g = torch.Generator().manual_seed(4)
+    prompts = [torch.randint(0, CFG["vocab"], (n,), generator=g).tolist()
+               for n in (3, 8, 5, 1, 6, 4)]
+    tiers = ["hi", "lo", "mid", "hi", "lo", "mid"]
+    spec = tapi.SpecConfig("lo", k=3)
+    rids = [eng.submit(p, max_new=7, quality=q, speculate=spec if i == 0 else None)
+            for i, (p, q) in enumerate(zip(prompts[:4], tiers))]
+    eng.step()
+    eng.step()
+    if cancel:
+        eng.cancel(rids[1])
+    rids += [eng.submit(prompts[4], max_new=6, quality=tiers[4]),
+             eng.submit(prompts[5], max_new=9, quality=tiers[5], speculate=spec)]
+    eng.run_until_drained()
+    return [(eng.poll(r).finish_reason.value, eng.poll(r).tokens) for r in rids]
+
+
+def test_captured_tokens_equal_eager(art):
+    eager = _stream(art.engine(device="cuda", eager=True, **ENGINE))
+    captured = art.engine(device="cuda", **ENGINE)
+    assert captured.eager is False
+    assert _stream(captured) == eager
+    assert len(captured._session.graphs) > 0
+
+
+def test_no_recapture_across_admit_evict_and_tier_flip(art):
+    eng = art.engine(device="cuda", **ENGINE)
+    first = _stream(eng)  # captures every key this schedule needs
+    n = len(eng._session.graphs)
+    with no_recapture(eng):
+        assert _stream(eng) == first
+        eng.set_quality("lo")  # the default tier moves: still a data change
+        eng.reset_stream()
+        rid = eng.submit([5, 6, 7], max_new=4, quality="hi")
+        eng.run_until_drained()
+        assert eng.poll(rid).finish_reason.value == "done"
+    assert len(eng._session.graphs) == n
+    with pytest.raises(AssertionError, match="new captures"):
+        with no_recapture(eng):
+            eng._session.graphs.graphs[("decode", 99)] = None
+
+
+def test_meter_equals_traffic_after_replays(art):
+    eager = art.engine(device="cuda", eager=True, **ENGINE)
+    eng = art.engine(device="cuda", **ENGINE)
+    _stream(eng)  # the captures count nothing
+    counts = []
+    for e in (eager, eng):
+        dispatch.reset_counters()
+        qsq.reset_launches()
+        _stream(e)
+        stats, words, tr = e.stream_stats(), e._session.phase_words, dispatch.traffic
+        assert 4 * tr["plane_words_read"] == stats["bytes_read"]
+        assert 4 * tr["plane_words_full"] == stats["bytes_full"]
+        for phase in ("draft", "verify"):
+            assert [tr[f"phase:{phase}:plane_words_read"],
+                    tr[f"phase:{phase}:plane_words_full"]] == words[phase]
+        counts.append((dict(dispatch.counters), dict(tr), dict(qsq.launches)))
+    assert counts[1] == counts[0]
+    assert counts[1][2].get("qsq_matvec_masked", 0) > 0
+
+
+def test_one_graph_per_demand_and_window(art):
+    eng = art.engine(device="cuda", **ENGINE)
+    _stream(eng)
+    graphs = eng._session.graphs
+    keys = graphs.keys()
+    assert all(isinstance(rec.graph, torch.cuda.CUDAGraph) for rec in graphs.graphs.values())
+    by = {kind: [k[1:] for k in keys if k[0] == kind] for kind in ("decode", "admit", "verify")}
+    assert set(by) == {k[0] for k in keys}
+    assert len(set(by["decode"])) == len(by["decode"]) <= 3
+    assert len(set(by["admit"])) == len(by["admit"]) <= 3
+    assert by["verify"] and all(0 <= d <= 2 and 2 <= w <= 4 for d, w in by["verify"])
+    assert all(0 <= d[0] <= 2 for d in by["decode"] + by["admit"])
+
+
+def test_one_host_sync_per_step(art):
+    eng = art.engine(device="cuda", **ENGINE)
+    _stream(eng, cancel=False)  # capture first: a capture synchronizes
+    eng.reset_stream()
+    for i, p in enumerate([[1, 2], [3], [4, 5, 6]]):
+        eng.submit(p, max_new=6, quality=["hi", "mid", "lo"][i])
+    torch.cuda.synchronize()
+    per_step = []
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        while eng.has_work:
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                info = eng.step()
+            syncs = sum("synchroniz" in str(w.message) for w in caught)
+            per_step.append((syncs, len(info.admitted) + (1 if info.live else 0)))
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert per_step and all(s == want for s, want in per_step), per_step

@@ -9,16 +9,23 @@ direction) and serve the same request schedules:
   deadline and cancellation outcomes;
 * equal ``stream_stats()`` bytes/token and ``tier_cost_table()`` — the
   analytic weight-byte meter — and, in the port, the per-call dispatch
-  traffic equal to that meter.
+  traffic equal to that meter;
+* the port's steps keyed (as CUDA graphs on a card, as plain calls here)
+  by demand and window width alone, and its admission, which takes the
+  lane as a device tensor, equal to the JAX admission step.
 """
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 
+import jax
+import jax.numpy as jnp
 from torch_port_scope import port_modules
 
 from repro import api as japi
+from repro.models.base import init_params as jinit
+from repro.train.step import make_admit_step as jmake_admit_step
 
 CFG = dict(name="smollm-bench", family="dense", n_layers=2, d_model=64, n_heads=4,
            n_kv=2, d_ff=128, vocab=256, remat=False)
@@ -28,14 +35,18 @@ ENGINE = dict(quality="mid", batch_slots=3, max_prompt=8, max_len=24)
 @pytest.fixture(scope="module", autouse=True)
 def _port():
     """Import the port for this file only (see ``torch_port_scope``)."""
-    global tapi, TArch, params_from_numpy, tdispatch, TModel, is_desc, tree_map
+    global tapi, TArch, params_from_numpy, tdispatch, TModel, is_desc, tree_map, \
+        no_recapture, tinit, tmake_admit_step
     with port_modules():
         from repro_torch import api as tapi
+        from repro_torch.analysis import no_recapture
         from repro_torch.configs.base import ArchConfig as TArch
         from repro_torch.convert import params_from_numpy
         from repro_torch.kernels import dispatch as tdispatch
         from repro_torch.models.api import Model as TModel
+        from repro_torch.models.base import init_params as tinit
         from repro_torch.models.base import is_desc
+        from repro_torch.train.step import make_admit_step as tmake_admit_step
         from repro_torch.tree import tree_map
         yield
 
@@ -209,3 +220,70 @@ def test_port_defers_speculation_and_sampling(engines, path):
     assert len(toks[0]) == 2
     with pytest.raises(ValueError, match="greedy-only"):
         eng.submit([1, 2], max_new=2)
+
+
+def _spec_stream(eng, mod):
+    """Staggered mixed tiers, lanes re-used at other tiers, two requests
+    speculating from "lo" (verify windows of 2 and 3)."""
+    eng.reset_stream()
+    prompts = _prompts(6, 9)
+    tiers = ["hi", "lo", "mid", "hi", "mid", "lo"]
+    rids = [eng.submit(p, max_new=6, quality=q,
+                       speculate=mod.SpecConfig("lo", k=1 + i) if i in (0, 4) else None)
+            for i, (p, q) in enumerate(zip(prompts[:3], tiers))]
+    eng.step()
+    rids += [eng.submit(p, max_new=5, quality=q,
+                        speculate=mod.SpecConfig("lo", k=2) if q == "mid" else None)
+             for p, q in zip(prompts[3:], tiers[3:])]
+    eng.run_until_drained()
+    return [_status(eng.poll(r)) for r in rids]
+
+
+def test_graph_keys_hold_static_args_only(engines):
+    """The port keys each step by its static arguments, as the JAX engine
+    traces: decode and admission by demand, the verify by (demand, window
+    width); never by slot, tiers, active lanes or tokens.  A second stream
+    that admits, evicts and re-tiers lanes adds no key, and both streams
+    serve the JAX engine's tokens."""
+    jeng, teng = engines
+    want = _spec_stream(jeng, japi)
+    assert _spec_stream(teng, tapi) == want
+    keys = teng._session.graphs.keys()
+    for key in keys:
+        assert key[0] in ("decode", "admit", "verify"), key
+        assert len(key) == (3 if key[0] == "verify" else 2), key
+        assert all(isinstance(v, int) for v in key[1:]) and 0 <= key[1] <= 2, key
+    assert {k[0] for k in keys} == {"decode", "admit", "verify"}
+    with no_recapture(teng):
+        assert _spec_stream(teng, tapi) == want
+    assert teng._session.graphs.keys() == keys
+
+
+def test_tensor_slot_admission_matches_jax(path):
+    """``make_admit_step`` with the lane as a (1,) device tensor fills the
+    live cache and picks the first token as the JAX step does with a traced
+    scalar lane, at each request's own tier and demand."""
+    jart, tart = japi.load(path), tapi.load(path)
+    jm, tm = jart.model(), tart.model()
+    jp, _ = jart.serve_params("hi", per_request=True)
+    tp, _ = tart.serve_params("hi", per_request=True, device="cpu")
+    jadmit = jax.jit(jmake_admit_step(jm), static_argnums=(7,))
+    tadmit = tmake_admit_step(tm)
+    jzero = jinit(jax.random.PRNGKey(0), jm.cache_descs(1, 16))
+    jc = jinit(jax.random.PRNGKey(0), jm.cache_descs(3, 16))
+    tzero = tinit(tm.cache_descs(1, 16), device="cpu")
+    tc = tinit(tm.cache_descs(3, 16), device="cpu")
+    for slot, (prompt, tier) in zip((2, 0, 1), zip(_prompts(3, 12), (1, 0, 2))):
+        toks = np.zeros((1, 8), np.int32)
+        toks[0, 8 - len(prompt):] = prompt
+        args = (toks, np.array([len(prompt)], np.int32))
+        jc, jfirst = jadmit(jp, jzero, jc, *map(jnp.asarray, args), jnp.int32(slot),
+                            jnp.array([tier], jnp.int32), tier)
+        tc, tfirst = tadmit(tp, tzero, tc, *map(torch.from_numpy, args),
+                            torch.tensor([slot]), torch.tensor([tier], dtype=torch.int32),
+                            tier)
+        assert int(tfirst) == int(jfirst)
+    np.testing.assert_allclose(tc.kv.k.numpy(), np.asarray(jc.kv.k), atol=1e-4, rtol=1e-4)
+    np.testing.assert_allclose(tc.kv.v.numpy(), np.asarray(jc.kv.v), atol=1e-4, rtol=1e-4)
+    np.testing.assert_array_equal(tc.kv.pos.numpy(), np.asarray(jc.kv.pos))
+    np.testing.assert_array_equal(tc.kv.pad.numpy(), np.asarray(jc.kv.pad))

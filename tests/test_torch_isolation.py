@@ -53,8 +53,10 @@ def test_port_file_list_is_complete():
     names = {p.name for p in PORT_FILES}
     assert {"api.py", "engine.py", "store.py", "qsq.py", "chip_smoke.py", "trainer.py",
             "manager.py", "pipeline.py", "compression.py", "adamw.py", "cnn.py", "csd.py",
-            "energy.py", "pytree.py", "packed.py"} <= names
+            "energy.py", "pytree.py", "packed.py", "graphs.py", "retrace.py",
+            "phi4_mini_3_8b.py", "qwen3_14b.py", "deepseek_7b.py"} <= names
     assert ROOT / "src" / "repro_torch" / "launch" / "train.py" in PORT_FILES
+    assert ROOT / "src" / "repro_torch" / "analysis" / "retrace.py" in PORT_FILES
     assert len(PORT_FILES) > 20
 
 
@@ -72,7 +74,9 @@ def test_port_imports_with_jax_blocked():
         "import repro_torch.api, repro_torch.serve.engine, repro_torch.kernels.build\n"
         "import repro_torch.train.trainer, repro_torch.launch.train, repro_torch.kernels\n"
         "import repro_torch.models.cnn, repro_torch.core.csd, repro_torch.quant.packed\n"
-        "import repro_torch.train.cnn\n"
+        "import repro_torch.train.cnn, repro_torch.serve.graphs, repro_torch.analysis\n"
+        "import repro_torch.configs.phi4_mini_3_8b, repro_torch.configs.qwen3_14b\n"
+        "import repro_torch.configs.deepseek_7b\n"
         "assert not [m for m in sys.modules if sys.modules[m] is not None\n"
         "            and (m in ('jax', 'repro') or m.startswith(('jax.', 'repro.')))]\n"
         "print('ok')\n"

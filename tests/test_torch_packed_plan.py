@@ -8,6 +8,8 @@ word multiples, the plan is a function of (kind, M, K, N, G, x dtype) alone
 bit-identical to the unmasked kernel on truncated planes), clusters stay
 within the portable 8 blocks, the grid covers N, a block's shared memory
 fits, and the smollm-135m serving shapes put work on the card's 132 SMs.
+With bf16 x and G a multiple of 16, no packed shape of the four dense
+configs falls back to the FMA kernel.
 """
 import inspect
 
@@ -84,7 +86,11 @@ def test_cluster_warps_and_tiles_within_limits():
         assert 1 <= p.cs <= qsq.CLUSTER_MAX, p
         assert 1 <= p.wn * p.wk <= qsq.MAX_WARPS, p
         assert p.cs * p.wk <= k // 32, p  # no empty slice
-        assert p.mt == (1 if kind == "gemv" else 4) and p.nt in (1, 2), p
+        assert p.nt in (1, 2), p
+        if kind == "gemv":
+            assert p.mt == 1, p
+        else:  # 64-row tiles wherever they fit the split, else the GEMV's 16-row tiles
+            assert p.mt == 4 or p._replace(mt=4).smem_bytes(k) > qsq.SMEM_MAX, p
         if p.persist:
             assert p.cs == 1 and p.wk == 1, p
 
@@ -123,6 +129,43 @@ def test_fma_route_for_f32_x_and_other_groups():
     assert qsq.launch_plan("gemv", 8, 576, 576, 16, torch.float32).route == "fma"
     assert qsq.launch_plan("gemm", 64, 576, 576, 8, torch.bfloat16).route == "fma"
     assert qsq.launch_plan("gemm", 64, 576, 576, 48, torch.bfloat16).route == "mma"
-    # x over all of K does not fit even split 8 ways: the FMA kernel takes it
-    assert qsq.launch_plan("gemm", 64, 16384, 64, 16, torch.bfloat16).route == "fma"
+    # the GEMM's 64 x rows over all of K do not fit even split 8 ways: it
+    # runs on the GEMV's 16-row tiles, still on the tensor cores
+    p = qsq.launch_plan("gemm", 64, 16384, 64, 16, torch.bfloat16)
+    assert p.route == "mma" and p.mt == 1, p
     assert qsq.launch_plan("fma_kind_unused", 8, 64, 64, 16, torch.float32).blocks(8, 64) == 0
+
+
+DENSE = {  # the packed (K, N) of every dense config the port serves: wq, wk/wv, wg/wu, wd, head
+    "smollm_135m": SMOLLM,
+    "phi4_mini_3_8b": [(3072, 3072), (3072, 1024), (3072, 8192), (8192, 3072), (3072, 200064)],
+    "qwen3_14b": [(5120, 5120), (5120, 1024), (5120, 17408), (17408, 5120), (5120, 151936)],
+    "deepseek_7b": [(4096, 4096), (4096, 11008), (11008, 4096), (4096, 102400)],
+}
+
+
+@pytest.mark.parametrize("arch", sorted(DENSE))
+def test_dense_config_shapes_take_tensor_cores(arch):
+    """Every packed shape of the four dense configs, G 16 and 64, M from a
+    single decode row to a static prefill, takes the tensor-core route with
+    a plan that fits; up to 64 rows the GEMM splits K as the GEMV does.
+    (deepseek-7b's and qwen3-14b's ``wd`` took the FMA route at every M
+    before the GEMM could fall back to 16-row tiles.)  The heads of the
+    three large configs take the persistent GEMV."""
+    for k, n in DENSE[arch]:
+        for g in (16, 64):
+            gemv = qsq.launch_plan("gemv", 8, k, n, g, torch.bfloat16)
+            for m in (1, 8, 16, 40, 64, 128, 336):
+                kind = "gemv" if m <= qsq.GEMV_M_MAX else "gemm"
+                p = qsq.launch_plan(kind, m, k, n, g, torch.bfloat16)
+                assert p.route == "mma", (arch, k, n, g, m, p)
+                assert p.smem_bytes(k) <= qsq.SMEM_MAX, (arch, k, n, g, m, p)
+                assert 1 <= p.cs <= qsq.CLUSTER_MAX and 1 <= p.wn * p.wk <= qsq.MAX_WARPS, p
+                assert p.cs * p.wk <= k // 32, p
+                gx, gy = p.grid(m, n)
+                assert gx * p.bn >= n * p.cs and gy * 16 * p.mt >= m, (m, n, p)
+                if m <= qsq.SAME_PLAN_ROWS:
+                    assert p.k_slices(k) == gemv.k_slices(k), (arch, k, n, g, m)
+                    assert (p.cs, p.wk) == (gemv.cs, gemv.wk), (arch, k, n, g, m)
+        if arch != "smollm_135m" and n > 100000:
+            assert qsq.launch_plan("gemv", 8, k, n, 16, torch.bfloat16).persist == 1
