@@ -17,7 +17,8 @@ Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``
    K1 (M = 8) to K4 (M = 64) at the 14 packed shapes of phi4-mini-3.8b,
    qwen3-14b and deepseek-7b (K to 17408, N to 200064): f32 bound, masked
    == truncated, no bf16 launch on the FMA route, each shape's plan and
-   time against ``torch.matmul`` and the byte bound;
+   time against ``torch.matmul`` and the byte bound; the same at the three
+   packed shapes of qwen3-moe-30b-a3b (2048x4096, 2048x512, 2048x151936);
 3. the main path at full width: ``api.compress`` of smollm-135m (random
    weights from a seeded ``torch.Generator``), ``save``,
    ``api.load(verify=True)``, ``artifact.engine(quality="mid",
@@ -84,7 +85,16 @@ Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``
    profiles; qwen3-14b and deepseek-7b at their published widths cut to 2
    layers (a reduction of depth only) serving mixed-tier greedy tokens
    through the captured engine, the long-K ``wd`` on the GEMM's 16-row
-   tiles; the three smoke configs give the CPU's tokens on the card.
+   tiles; the three smoke configs give the CPU's tokens on the card;
+12. qwen3-moe-30b-a3b at its published widths cut to 8 layers (a reduction
+   of depth only; random init, seed 0) through phase 3's path, eager and
+   captured (identical tokens, the same checks, replayed logits equal
+   eager), a speculative stream (drafted and accepted counts, and whether
+   its tokens equal plain decode: under capacity routing they need not,
+   so this is printed, not checked), the peak device memory, and the
+   device time split of a decode step (K1/K2, the expert products,
+   routing, attention, the rest); the MoE smoke config gives the CPU's
+   tokens on the card.
 
 Any failed check raises, so the script exits non-zero and prints no
 result.  The second-to-last line is the per-kernel JSON summary and the
@@ -93,6 +103,7 @@ shared-memory report goes to ``build/kernels/build.log``.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -371,27 +382,34 @@ DENSE_SHAPES = {
 }
 
 
-def dense_shapes(torch, gen, flush) -> dict:
-    """K1-K4 at the 14 packed shapes of phi4-mini, qwen3-14b and deepseek-7b:
-    within the f32 bound of their plain versions (bf16 and f32 x, all
-    planes, a random mix of tier masks), masked rows equal to the unmasked
-    kernel on truncated planes; no bf16 launch on the FMA route; then each
-    shape's plan and its cold-L2 time (bf16 x) against ``torch.matmul`` and
-    the byte bound.  Returns each kernel's sums over the 14 shapes."""
+# (K, N) of qwen3-moe-30b-a3b's packed leaves: wq, wk/wv, head (the experts
+# serve dense: their expert axis is not a stack axis)
+MOE_SHAPES = {"qwen3-moe-30b-a3b": [(2048, 4096), (2048, 512), (2048, 151936)]}
+
+
+def dense_shapes(torch, gen, flush, by_arch=None) -> dict:
+    """K1-K4 at the packed shapes of ``by_arch`` (default: the 14 of
+    phi4-mini, qwen3-14b and deepseek-7b): within the f32 bound of their
+    plain versions (bf16 and f32 x, all planes, a random mix of tier
+    masks), masked rows equal to the unmasked kernel on truncated planes;
+    no bf16 launch on the FMA route; then each shape's plan and its cold-L2
+    time (bf16 x) against ``torch.matmul`` and the byte bound.  Returns
+    each kernel's sums over the shapes."""
     from repro_torch.kernels import qsq
 
-    shapes = [sh for v in DENSE_SHAPES.values() for sh in v]
+    by_arch = DENSE_SHAPES if by_arch is None else by_arch
+    shapes = [sh for v in by_arch.values() for sh in v]
     qsq.reset_launches()
     n = check_kernels(torch, gen, shapes=shapes, demands=(0,))
     fma = {k: v for k, v in qsq.launches.items() if k.endswith(":fma")}
     if fma:
         raise AssertionError(f"bf16 launches took the FMA route: {fma}")
-    say(f"  {n} checks at the 14 shapes passed: f32 bound, masked == truncated bit for bit; "
-        f"bf16 launches on the FMA route: 0")
+    say(f"  {n} checks at the {len(shapes)} shapes passed: f32 bound, masked == truncated bit "
+        f"for bit; bf16 launches on the FMA route: 0")
     sums = {}
     for name, (masked, m, _, _) in KERNELS.items():
         tot = dict(ms=0.0, library_ms=0.0, bound_ms=0.0)
-        for arch, shs in DENSE_SHAPES.items():
+        for arch, shs in by_arch.items():
             for k, nn in shs:
                 p = qsq.launch_plan("gemv" if m <= 16 else "gemm", m, k, nn, GROUP,
                                     torch.bfloat16)
@@ -401,14 +419,14 @@ def dense_shapes(torch, gen, flush) -> dict:
                 tot["ms"] += ms
                 tot["library_ms"] += lib_ms
                 tot["bound_ms"] += bound
-                say(f"  {name:18s} {arch:14s} K={k:5d} N={nn:6d} M={m:2d}: kernel "
+                say(f"  {name:18s} {arch:17s} K={k:5d} N={nn:6d} M={m:2d}: kernel "
                     f"{ms * 1e3:8.2f} us  torch.matmul {lib_ms * 1e3:8.2f} us  bound "
                     f"{bound * 1e3:7.2f} us ({bound / ms:5.1%} of bound); plan mt={p.mt} "
                     f"nt={p.nt} wn={p.wn} wk={p.wk} cs={p.cs} persist={p.persist}, "
                     f"{p.blocks(m, nn)} blocks, {p.smem_bytes(k) / 1024:.1f} KB")
         sums[name] = tot
-        say(f"  {name} summed over the 14 shapes: kernel {tot['ms']:.4f} ms, torch.matmul "
-            f"{tot['library_ms']:.4f} ms, bound {tot['bound_ms']:.4f} ms")
+        say(f"  {name} summed over the {len(shapes)} shapes: kernel {tot['ms']:.4f} ms, "
+            f"torch.matmul {tot['library_ms']:.4f} ms, bound {tot['bound_ms']:.4f} ms")
     return sums
 
 
@@ -783,7 +801,8 @@ def d64_model_params(torch, cfg=None):
     def draw(d):
         if d.init == "ones":
             return np.ones(d.shape, np.float32)
-        std = {"fan_in": d.scale / np.sqrt(d.shape[-2]), "normal": d.scale * 0.02}[d.init]
+        std = {"fan_in": d.scale / np.sqrt(d.shape[-2]), "normal": d.scale * 0.02,
+               "small": d.scale * 0.006}[d.init]
         return (rng.standard_normal(d.shape) * std).astype(np.float32)
 
     return model, params_from_numpy(tree_map(draw, model.param_descs(), is_leaf=is_desc), "cpu")
@@ -2018,6 +2037,195 @@ def reduced_full_width(torch, workdir: Path) -> None:
         card_vs_cpu(torch, workdir, cfg=get_arch(arch, smoke=True))
 
 
+# --------------------------------------------------------------------------
+# Phase 12: the MoE family
+# --------------------------------------------------------------------------
+MOE_ARCH = "qwen3_moe_30b_a3b"
+MOE_LAYERS = 8  # of 48: compressing needs the dense tree and its codes at once
+
+
+def moe_full_width(torch, workdir: Path) -> dict:
+    """qwen3-moe-30b-a3b at its published widths cut to ``MOE_LAYERS`` layers
+    (random weights from seed 0) through the main path: compress, save,
+    load(verify=True), engine(quality="mid"), the mixed-tier stream eager
+    and captured (K1-K4 on wq/wk/wv and the head; the experts dense,
+    batched over experts), replayed logits equal eager; a speculative
+    stream; the split of a decode step's device time.  Then the MoE smoke
+    config gives the CPU's tokens on the card.  Returns the captured
+    stream's launches."""
+    import gc
+
+    from repro_torch import api
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import dispatch
+
+    gc.collect()  # the earlier phases' engines and graph pools
+    torch.cuda.empty_cache()
+    full = get_arch(MOE_ARCH)
+    cfg = dataclasses.replace(full, n_layers=MOE_LAYERS)
+    e_bytes = 3 * cfg.moe.n_experts * cfg.d_model * cfg.d_ff * 2 * cfg.n_layers
+    say(f"  reduced: n_layers {full.n_layers} -> {cfg.n_layers}, nothing else (d {cfg.d_model}, "
+        f"{cfg.n_heads}/{cfg.n_kv} heads of {cfg.hd}, {cfg.moe.n_experts} experts top-"
+        f"{cfg.moe.top_k} of d_ff {cfg.d_ff}, vocab {cfg.vocab}, bf16); dense bf16 experts "
+        f"{e_bytes / 1e9:.2f} GB, {e_bytes / HBM_BYTES_PER_S * 1e3:.3f} ms a decode step at the "
+        f"byte bound")
+    torch.cuda.reset_peak_memory_stats()
+    art, path, t_save, t_load = compress_saved(torch, workdir, cfg, MOE_ARCH)
+    say(f"  artifact {path.stat().st_size / 2**30:.3f} GiB, compress+save {t_save:.1f} s, "
+        f"load(verify) {t_load:.1f} s; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    path.unlink()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _, c, eng = eager_and_captured(torch, art, cfg, "qwen3-moe-30b-a3b")
+    graph_logits_equal(torch, eng, "qwen3-moe-30b-a3b")
+
+    prompts = stream_prompts(torch, cfg)[:8]
+    quals = ["hi" if i % 2 == 0 else "mid" for i in range(8)]
+    spec = [(i // 2) % 2 == 0 for i in range(8)]
+    sc = api.SpecConfig("lo", k=W_VERIFY - 1)
+    _stream(torch, eng, prompts, quals, spec, None)  # the captures of both streams
+    plain, _, plain_wall = _stream(torch, eng, prompts, quals, spec, None)
+    _stream(torch, eng, prompts, quals, spec, sc)
+    dispatch.reset_counters()
+    toks, stats, wall = _stream(torch, eng, prompts, quals, spec, sc)
+    words, tr = eng._session.phase_words, dispatch.traffic
+    for phase in ("draft", "verify"):
+        if (tr[f"phase:{phase}:plane_words_read"], tr[f"phase:{phase}:plane_words_full"]) != \
+                tuple(words[phase]):
+            raise AssertionError(f"qwen3-moe phase {phase} traffic != meter {words[phase]}")
+    if stats["drafted"] == 0:
+        raise AssertionError("qwen3-moe: no request drafted")
+    same = sum(a == b for a, b in zip(toks, plain, strict=True))
+    say(f"  qwen3-moe-30b-a3b: 8 requests x {MAX_NEW} tokens, half speculating with "
+        f"SpecConfig('lo', {sc.k}), captured: drafted {stats['drafted']}, accepted "
+        f"{stats['accepted']}; phase words == meter; {same} of 8 token lists equal plain "
+        f"decode (a finding, not a check: capacity routing couples lanes); tokens/s "
+        f"speculative {stats['tokens'] / wall:.1f}, plain "
+        f"{len(prompts) * MAX_NEW / plain_wall:.1f}")
+    eager = art.engine(quality="mid", batch_slots=8, device="cuda", eager=True)
+    profile_moe_decode(torch, eager, eng, prompts)
+    say(f"  peak device memory while serving (two engines' dense experts): "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    del eager, eng, art
+    gc.collect()
+    torch.cuda.empty_cache()
+    card_vs_cpu(torch, workdir, cfg=get_arch(MOE_ARCH, smoke=True))
+    return c["launches"]
+
+
+MOE_RANGES = {"expert_ffn": "expert bmm", "moe_route": "routing", "moe": "routing",
+              "_gqa_scores_apply": "attention"}
+
+
+@contextlib.contextmanager
+def _profiled_ranges(torch):
+    """Wrap the layer functions of ``MOE_RANGES`` in profiler ranges (the
+    callers look them up in the module at each call)."""
+    from repro_torch.models import layers
+
+    saved = {n: getattr(layers, n) for n in MOE_RANGES}
+
+    def ranged(name, fn):
+        def call(*a, **kw):
+            with torch.profiler.record_function(name):
+                return fn(*a, **kw)
+        return call
+
+    for n, fn in saved.items():
+        setattr(layers, n, ranged(n, fn))
+    try:
+        yield
+    finally:
+        for n, fn in saved.items():
+            setattr(layers, n, fn)
+
+
+def _moe_category(evt) -> str:
+    """The innermost ``MOE_RANGES`` range around a profiled op, else rest."""
+    while evt is not None:
+        if evt.name in MOE_RANGES:
+            return MOE_RANGES[evt.name]
+        evt = evt.cpu_parent
+    return "rest"
+
+
+def _decode_prof(torch, eng, prompts, steps, ranges=False):
+    """A profile of ``steps`` decode steps at 8 live slots (mixed tiers)
+    -> (prof, wall us a step)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    eng.reset_stream()
+    for i, p in enumerate(prompts):
+        eng.submit(p, max_new=steps + 4, quality=TIER_NAMES[i % 3])
+    eng.step()  # admits every prompt, then one decode
+    torch.cuda.synchronize()
+    with contextlib.ExitStack() as stack:
+        if ranges:
+            stack.enter_context(_profiled_ranges(torch))
+        prof = stack.enter_context(profile(activities=[ProfilerActivity.CPU,
+                                                       ProfilerActivity.CUDA]))
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            eng.step()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6 / steps
+    eng.run_until_drained()
+    return prof, wall_us
+
+
+def profile_moe_decode(torch, eager, eng, prompts, steps=2):
+    """The device time of a decode step split into K1/K2 (by kernel name),
+    the expert products, routing (softmax, top-k, sort, the dispatch
+    scatter and the combine's gather), attention (scores, softmax, PV) and
+    the rest.  In the eager step each kernel takes the category of the
+    layer function that launched it (profiler ranges); the captured step
+    replays the same kernels, and each of its kernel names takes the
+    category that held most of that name's eager time."""
+    from torch.autograd import DeviceType
+
+    kinds = ("K1/K2", "expert bmm", "routing", "attention", "rest")
+    prof, e_wall = _decode_prof(torch, eager, prompts, steps, ranges=True)
+    by_name: dict = {}
+    for evt in prof.events():
+        if evt.device_type != DeviceType.CPU:
+            continue
+        for k in evt.kernels:
+            if not kernel_of(k.name):
+                d = by_name.setdefault(k.name, dict.fromkeys(kinds, 0.0))
+                d[_moe_category(evt)] += k.duration
+    name_kind = {n: max(d, key=d.get) for n, d in by_name.items()}
+
+    def split(kern, exact):
+        out = dict.fromkeys(kinds, 0.0)
+        for key, t, _ in kern:
+            if kernel_of(key):
+                out["K1/K2"] += t
+            elif exact and key in by_name:
+                for kind, u in by_name[key].items():
+                    out[kind] += u
+                out["rest"] += t - sum(by_name[key].values())
+            else:
+                out[name_kind.get(key, "rest")] += t
+        return out
+
+    cprof, c_wall = _decode_prof(torch, eng, prompts, steps)
+    # the ranges show up as device annotations spanning their kernels
+    e_kern = [r for r in device_kernels(prof) if r[0] not in MOE_RANGES]
+    for label, kern, wall, exact in (("eager", e_kern, e_wall, True),
+                                     ("captured", device_kernels(cprof), c_wall, False)):
+        sp, busy = split(kern, exact), sum(t for _, t, _ in kern)
+        parts = ", ".join(f"{k} {sp[k] / steps / 1e3:.3f} ms "
+                          f"({100 * sp[k] / max(busy, 1e-9):.1f}%)" for k in kinds)
+        say(f"  qwen3-moe {label} decode step (8 slots, profiled): wall {wall / 1e3:.2f} ms, "
+            f"device busy {busy / steps / 1e3:.3f} ms ({100 * busy / steps / wall:.1f}% of "
+            f"wall), {sum(n for _, _, n in kern) // steps} launches; {parts}")
+        for name, t, n in sorted(kern, key=lambda r: -r[1])[:8]:
+            kind = "K1/K2" if kernel_of(name) else name_kind.get(name, "rest")
+            say(f"    {t / steps / 1e3:7.3f} ms/step  {n // steps:5d} launches/step  [{kind}] "
+                f"{name[:80]}")
+
+
 def main() -> int:
     import torch
 
@@ -2058,6 +2266,8 @@ def main() -> int:
     table2 = time_kernels(torch, gen, flush, sign_mag=False, plane_major=False)
     say("[2] K1-K4 at the packed shapes of phi4-mini-3.8b, qwen3-14b and deepseek-7b")
     dense = dense_shapes(torch, gen, flush)
+    say("[2] K1-K4 at the packed shapes of qwen3-moe-30b-a3b")
+    moe_shapes = dense_shapes(torch, gen, flush, MOE_SHAPES)
     del flush
 
     workdir = ROOT / "build" / "smoke"
@@ -2099,6 +2309,9 @@ def main() -> int:
         "layers; the three smoke configs, card against CPU")
     phi4_launches = phi4_full_width(torch, workdir)
     reduced_full_width(torch, workdir)
+    say(f"[12] qwen3-moe-30b-a3b at its published widths ({MOE_LAYERS} layers), eager and "
+        f"captured; the MoE smoke config, card against CPU")
+    moe_launches = moe_full_width(torch, workdir)
 
     for name, row in rows.items():
         row["launches"] = launches.get(name, 0)
@@ -2110,9 +2323,13 @@ def main() -> int:
         rows[name]["max_abs_err"] = e
         rows[name]["launches_packed_params"] = packed_launches.get(name, 0)
         rows[name]["launches_phi4_mini"] = phi4_launches.get(name, 0)
+        rows[name]["launches_qwen3_moe"] = moe_launches.get(name, 0)
         rows[name].update(dense_shapes_ms=dense[name]["ms"],
                           dense_shapes_library_ms=dense[name]["library_ms"],
-                          dense_shapes_bound_ms=dense[name]["bound_ms"])
+                          dense_shapes_bound_ms=dense[name]["bound_ms"],
+                          moe_shapes_ms=moe_shapes[name]["ms"],
+                          moe_shapes_library_ms=moe_shapes[name]["library_ms"],
+                          moe_shapes_bound_ms=moe_shapes[name]["bound_ms"])
         rows[name]["packed_params_max_abs_err"] = packed_errs.get(name)
         rows[name].update(table2_ms=table2[name]["ms"], table2_plain_ms=table2[name]["plain_ms"],
                           table2_library_ms=table2[name]["library_ms"],

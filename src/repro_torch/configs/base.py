@@ -1,8 +1,9 @@
 """Architecture configuration schema (the port of ``repro/configs/base.py``).
 
-Only the fields the dense decoder family reads are ported; ``dtype`` is a
-``torch.dtype``.  Artifacts store the JAX package's full field set, and
-``quant.artifact._arch_from_json`` keeps the fields this class knows.
+Only the fields the dense and MoE decoder families read are ported;
+``dtype`` is a ``torch.dtype``.  Artifacts store the JAX package's full
+field set, and ``quant.artifact._arch_from_json`` keeps the fields this
+class knows.
 """
 from __future__ import annotations
 
@@ -59,7 +60,7 @@ class ArchConfig:
         return self.head_dim or self.d_model // self.n_heads
 
 
-ARCH_IDS = ["smollm_135m", "phi4_mini_3_8b", "qwen3_14b", "deepseek_7b"]
+ARCH_IDS = ["smollm_135m", "phi4_mini_3_8b", "qwen3_14b", "deepseek_7b", "qwen3_moe_30b_a3b"]
 
 
 def canonical(arch_id: str) -> str:

@@ -128,11 +128,16 @@ def smcodes_to_levels(codes: torch.Tensor) -> torch.Tensor:
 
 
 def _nearest_levels(wg, alpha_b, max_level):
-    """argmin_beta |w - alpha*beta| over the signed power-of-two alphabet."""
+    """argmin_beta |w - alpha*beta| over the signed power-of-two alphabet.
+    The levels stay int8 at every step: Python ints in ``torch.where``
+    would make int64 tensors, 8 bytes a weight (12.9 GB at one 1.6 G-value
+    MoE expert leaf)."""
     r = wg / alpha_b
     a = torch.abs(r)
-    mag = torch.where(a < 0.5, 0, torch.where(a < 1.5, 1, torch.where(a < 3.0, 2, 4)))
-    mag = torch.clamp(mag, max=max_level).to(torch.int8)
+    lv = [torch.tensor(v, dtype=torch.int8, device=wg.device) for v in (0, 1, 2, 4)]
+    mag = torch.where(a < 0.5, lv[0], torch.where(a < 1.5, lv[1],
+                                                  torch.where(a < 3.0, lv[2], lv[3])))
+    mag = torch.clamp(mag, max=max_level)
     return torch.where(r < 0, -mag, mag)
 
 

@@ -1,4 +1,5 @@
-"""Uniform model API (the port of ``repro/models/api.py``), dense family.
+"""Uniform model API (the port of ``repro/models/api.py``), dense and MoE
+families.
 
 Other families raise ``NotImplementedError`` naming their ROADMAP item.
 """
@@ -11,8 +12,8 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import transformer
 
+_PORTED = ("dense", "moe")
 _NOT_PORTED = {
-    "moe": "ROADMAP Queue 1, item 8 (MoE family)",
     "vlm": "ROADMAP Queue 1, item 10 (the other families)",
     "ssm": "ROADMAP Queue 1, item 10 (the other families)",
     "hybrid": "ROADMAP Queue 1, item 10 (the other families)",
@@ -26,10 +27,10 @@ class Model:
 
     def __post_init__(self):
         f = self.cfg.family
-        if f not in _NOT_PORTED and f != "dense":
+        if f not in _NOT_PORTED and f not in _PORTED:
             raise ValueError(f"unknown family {f} (the paper's CNNs are "
                              f"repro_torch.models.cnn, not a Model)")
-        if f != "dense":
+        if f not in _PORTED:
             raise NotImplementedError(
                 f"family {f!r} is not ported yet: {_NOT_PORTED[f]}")
 

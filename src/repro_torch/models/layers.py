@@ -1,4 +1,4 @@
-"""Dense decoder layers (the port of ``repro/models/layers.py``).
+"""Decoder layers (the port of ``repro/models/layers.py``).
 
 Plain functions over explicit param dicts, in PyTorch.  Layouts match the
 JAX package at every public function: activations (B, S, d), heads as
@@ -11,9 +11,13 @@ The training forward (:func:`attention`, :func:`next_token_loss`) is
 plain tensor code that autograd differentiates; the JAX package has no
 backward kernels either.
 
-Not ported yet: the sliding-window ring buffer and MoE (ROADMAP Queue 1,
-item 8) and cross attention (item 10).  A windowed config raises rather
-than being served or trained wrong.
+:func:`moe` is the MoE FFN with capacity routing; its experts are
+decoded to dense at load, as the JAX package serves them, and contract in
+batched products over the expert axis.
+
+Not ported yet: the sliding-window ring buffer (ROADMAP Queue 1, item 8b)
+and cross attention (item 10).  A windowed config raises rather than
+being served or trained wrong.
 """
 from __future__ import annotations
 
@@ -168,7 +172,7 @@ def _no_window(window):
     if window is not None:
         raise NotImplementedError(
             "sliding-window attention (the SWA ring buffer) is not ported yet: "
-            "ROADMAP Queue 1, item 8")
+            "ROADMAP Queue 1, item 8b")
 
 
 def attention(p: dict, x: torch.Tensor, *, positions: torch.Tensor | None = None,
@@ -326,6 +330,108 @@ def mlp(p: dict, x: torch.Tensor, tiers=None, demand=None) -> torch.Tensor:
     g = F.silu(matvec(p["wg"], x, tiers, demand))
     u = matvec(p["wu"], x, tiers, demand)
     return matvec(p["wd"], g * u, tiers, demand)
+
+
+# --------------------------------------------------------------------------
+# MoE with capacity routing
+# --------------------------------------------------------------------------
+def moe_descs(d: int, ff: int, n_experts: int, dtype=torch.float32) -> dict:
+    return {
+        "router": dense(d, n_experts, "embed", None, dtype=torch.float32, init="small"),
+        "wg": ParamDesc((n_experts, d, ff), ("experts", "embed", "mlp"), dtype=dtype),
+        "wu": ParamDesc((n_experts, d, ff), ("experts", "embed", "mlp"), dtype=dtype),
+        "wd": ParamDesc((n_experts, ff, d), ("experts", "mlp", "embed"), dtype=dtype),
+    }
+
+
+class Routing(NamedTuple):
+    """Where :func:`moe` sent each of the T * k assignments (token-major)."""
+
+    expert: torch.Tensor  # (T*k,) int64 expert id, the sentinel E for dead lanes
+    pos: torch.Tensor     # (T*k,) int64 position in the expert's buffer
+    keep: torch.Tensor    # (T*k,) bool: a live assignment within capacity
+    weight: torch.Tensor  # (T*k,) f32 renormalised top-k weight (0 on dead lanes)
+
+
+def moe_route(router: torch.Tensor, xt: torch.Tensor, *, top_k: int, cap: int,
+              active: torch.Tensor | None = None) -> tuple[Routing, torch.Tensor]:
+    """Top-k token choice over xt (T, d) -> (routing, aux loss).
+
+    The router runs in f32.  Each expert takes its first ``cap``
+    assignments in token-major order (a stable sort by expert id); the rest
+    drop.  An inactive lane's assignments go to the sentinel expert E,
+    which sorts after every real one, so a dead lane claims no capacity.
+    Shapes only decide ``cap``; nothing here syncs with the host."""
+    t = xt.shape[0]
+    e = router.shape[-1]
+    probs = torch.softmax(xt.to(torch.float32) @ router.to(torch.float32), dim=-1)  # (T, E)
+    topw, topi = torch.topk(probs, top_k, dim=-1)
+    topw = topw / torch.sum(topw, dim=-1, keepdim=True)
+
+    # Switch-style load-balancing loss over every token; the top-1 counts go
+    # through scatter_add_ (bincount's output length would sync the host)
+    me = torch.mean(probs, dim=0)
+    counts = torch.zeros(e, dtype=torch.float32, device=xt.device).scatter_add_(
+        0, topi[:, 0], torch.ones(t, dtype=torch.float32, device=xt.device))
+    aux = e * torch.sum(me * (counts / t))
+
+    flat_e = topi.reshape(-1)
+    flat_w = topw.reshape(-1)
+    if active is not None:
+        act = (active.reshape(-1) != 0)
+        act = act[:, None].expand(act.shape[0], t // act.shape[0] * top_k).reshape(-1)
+        flat_e = torch.where(act, flat_e, e)
+        flat_w = flat_w * act.to(flat_w.dtype)
+    order = torch.argsort(flat_e, stable=True)
+    rank = torch.argsort(order)  # each assignment's index in expert-major order
+    starts = torch.searchsorted(flat_e[order],
+                                torch.arange(e, dtype=flat_e.dtype, device=xt.device),
+                                side="left")
+    pos = rank - starts[torch.clamp(flat_e, max=e - 1)]
+    keep = (pos < cap) & (flat_e < e)
+    return Routing(expert=flat_e, pos=pos, keep=keep, weight=flat_w), aux
+
+
+def expert_ffn(p: dict, buf: torch.Tensor) -> torch.Tensor:
+    """SwiGLU of every expert over its buffer: (E, C, d) -> (E, C, d), as
+    batched products on the experts' dense weights."""
+    g = F.silu(torch.bmm(buf, W(p["wg"]).to(buf.dtype)))
+    u = torch.bmm(buf, W(p["wu"]).to(buf.dtype))
+    return torch.bmm(g * u, W(p["wd"]).to(buf.dtype))
+
+
+def moe(p: dict, x: torch.Tensor, *, top_k: int, capacity_factor: float = 1.25,
+        active: torch.Tensor | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+    """Top-k token-choice MoE over x (B, S, d) -> (y, aux loss), the JAX
+    package's ``moe`` with no mesh (one routing shard).
+
+    Every expert gets a buffer of ``cap = ceil(T * k * cf / E)`` tokens;
+    overflowing assignments drop, and dropped and dead ones land in a trash
+    slot ``cap`` that is cut off before the expert FFN.  ``active`` (B,)
+    takes dead lanes out of the competition (:func:`moe_route`).  Each kept
+    slot receives one token, so the dispatch is a plain indexed write; the
+    k weighted expert outputs of a token are summed in index order, so the
+    result does not depend on the order of a scatter's atomics."""
+    b, s, d = x.shape
+    e = p["router"].shape[-1]
+    t = b * s
+    xt = x.reshape(t, d)
+    cap = int(np.ceil(t * top_k * capacity_factor / e))
+    r, aux = moe_route(p["router"], xt, top_k=top_k, cap=cap, active=active)
+    ec = torch.clamp(r.expert, max=e - 1)
+    slot = torch.where(r.keep, r.pos, cap)
+    tok = torch.arange(t, device=x.device)[:, None].expand(t, top_k).reshape(-1)
+
+    buf = torch.zeros((e, cap + 1, d), dtype=x.dtype, device=x.device)
+    buf.index_put_((ec, slot), xt[tok])
+    yb = expert_ffn(p, buf[:, :cap])
+
+    w = (r.weight * r.keep.to(r.weight.dtype)).to(x.dtype)
+    ya = (yb[ec, torch.clamp(slot, max=cap - 1)] * w[:, None]).view(t, top_k, d)
+    y = ya[:, 0]
+    for j in range(1, top_k):
+        y = y + ya[:, j]
+    return y.reshape(b, s, d), aux
 
 
 def embed_descs(vocab: int, d: int, dtype=torch.float32) -> dict:

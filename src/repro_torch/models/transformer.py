@@ -1,4 +1,4 @@
-"""Dense decoder-only LM (the port of ``repro/models/transformer.py``).
+"""Decoder-only LM, dense and MoE (the port of ``repro/models/transformer.py``).
 
 Layer parameters stay stacked along a leading L axis, as in the JAX
 package; a Python loop over layers takes the place of its ``lax.scan``.
@@ -6,7 +6,8 @@ Public functions keep the JAX layouts: ``(B, S, vocab)`` f32 logits and a
 cache whose ``kv`` leaves carry (L, B, ...) axes.  The training forward
 (:func:`lm_forward`, :func:`lm_loss`) runs on dense weights; ``cfg.remat``
 recomputes each block in the backward pass (``torch.utils.checkpoint``),
-which changes no number.
+which changes no number.  With ``cfg.moe`` set, each block's FFN is
+``layers.moe`` and the loss adds its load-balancing term.
 """
 from __future__ import annotations
 
@@ -24,13 +25,17 @@ from repro_torch.tree import tree_map
 
 
 def _block_descs(cfg: ArchConfig) -> dict:
-    return {
+    d = {
         "ln1": L.rmsnorm_desc(cfg.d_model),
         "attn": L.attn_descs(cfg.d_model, cfg.n_heads, cfg.n_kv, cfg.hd,
                              qk_norm=cfg.qk_norm, dtype=cfg.dtype),
         "ln2": L.rmsnorm_desc(cfg.d_model),
-        "mlp": L.mlp_descs(cfg.d_model, cfg.d_ff, dtype=cfg.dtype),
     }
+    if cfg.moe is not None:
+        d["moe"] = L.moe_descs(cfg.d_model, cfg.d_ff, cfg.moe.n_experts, dtype=cfg.dtype)
+    else:
+        d["mlp"] = L.mlp_descs(cfg.d_model, cfg.d_ff, dtype=cfg.dtype)
+    return d
 
 
 def lm_descs(cfg: ArchConfig) -> dict:
@@ -54,17 +59,31 @@ def layer_params(blocks: dict, i: int) -> dict:
     return tree_map(_take, blocks, is_leaf=is_store)
 
 
+def _ffn(cfg: ArchConfig, p: dict, y: torch.Tensor, active=None, tiers=None,
+         demand=None) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """The block's FFN over the normed y -> (out, MoE aux loss or None).
+    The experts are dense, so ``tiers``/``demand`` reach only the MLP; MoE
+    lanes that ``active`` marks dead leave the expert competition."""
+    if cfg.moe is not None:
+        return L.moe(p["moe"], y, top_k=cfg.moe.top_k,
+                     capacity_factor=cfg.moe.capacity_factor, active=active)
+    return L.mlp(p["mlp"], y, tiers=tiers, demand=demand), None
+
+
 def _block_fwd(cfg: ArchConfig, p: dict, x: torch.Tensor,
-               positions: torch.Tensor) -> torch.Tensor:
+               positions: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor | None]:
     h = L.attention(p["attn"], L.rmsnorm(x, p["ln1"]), positions=positions,
                     theta=cfg.rope_theta, window=cfg.window)
     x = x + h
-    return x + L.mlp(p["mlp"], L.rmsnorm(x, p["ln2"]))
+    f, aux = _ffn(cfg, p, L.rmsnorm(x, p["ln2"]))
+    return x + f, aux
 
 
-def lm_forward(params: dict, cfg: ArchConfig, tokens: torch.Tensor) -> torch.Tensor:
-    """Training / prefill forward: tokens (B, S) -> logits (B, S, vocab) f32.
-    (The JAX package also returns a MoE aux loss, always 0 for dense.)"""
+def lm_forward_aux(params: dict, cfg: ArchConfig,
+                   tokens: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Training / prefill forward: tokens (B, S) -> (logits (B, S, vocab) f32,
+    the MoE aux loss averaged over layers; 0 for dense), as the JAX
+    package's ``lm_forward`` returns them."""
     b, s = tokens.shape
     x = L.embed(params["embed"], tokens, cfg.dtype)
     positions = torch.arange(s, dtype=torch.int32, device=tokens.device).expand(b, s)
@@ -72,19 +91,29 @@ def lm_forward(params: dict, cfg: ArchConfig, tokens: torch.Tensor) -> torch.Ten
     # in one op, where L indexing selects would each add a full-size zero-
     # filled gradient (L^2 work); the values are the same either way
     stacks = tree_map(lambda a: a.unbind(0), params["blocks"])
+    aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
     for i in range(cfg.n_layers):
         bp = tree_map(lambda t: t[i], stacks, is_leaf=lambda t: isinstance(t, tuple))
         if cfg.remat and torch.is_grad_enabled():
-            x = checkpoint(_block_fwd, cfg, bp, x, positions, use_reentrant=False)
+            x, a = checkpoint(_block_fwd, cfg, bp, x, positions, use_reentrant=False)
         else:
-            x = _block_fwd(cfg, bp, x, positions)
+            x, a = _block_fwd(cfg, bp, x, positions)
+        if a is not None:
+            aux = aux + a
     x = L.rmsnorm(x, params["final_norm"])
-    return L.lm_head(params["embed"], x)
+    return L.lm_head(params["embed"], x), aux / cfg.n_layers
+
+
+def lm_forward(params: dict, cfg: ArchConfig, tokens: torch.Tensor) -> torch.Tensor:
+    """Training / prefill forward: tokens (B, S) -> logits (B, S, vocab) f32."""
+    return lm_forward_aux(params, cfg, tokens)[0]
 
 
 def lm_loss(params: dict, cfg: ArchConfig, batch: dict) -> torch.Tensor:
-    """Next-token cross-entropy; batch = {tokens (B, S), labels (B, S)}."""
-    return L.next_token_loss(lm_forward(params, cfg, batch["tokens"]), batch["labels"])
+    """Next-token cross-entropy plus 0.01 x the MoE aux loss; batch =
+    {tokens (B, S), labels (B, S)}."""
+    logits, aux = lm_forward_aux(params, cfg, batch["tokens"])
+    return L.next_token_loss(logits, batch["labels"]) + 0.01 * aux
 
 
 class LMCache(NamedTuple):
@@ -115,7 +144,7 @@ def lm_decode(params: dict, cfg: ArchConfig, cache: LMCache, tokens: torch.Tenso
             theta=cfg.rope_theta, window=cfg.window, active=active,
             tiers=tiers, demand=demand)
         x = x + h
-        x = x + L.mlp(bp["mlp"], L.rmsnorm(x, bp["ln2"]), tiers=tiers, demand=demand)
+        x = x + _ffn(cfg, bp, L.rmsnorm(x, bp["ln2"]), active, tiers, demand)[0]
     x = L.rmsnorm(x, params["final_norm"])
     return L.lm_head(params["embed"], x, tiers=tiers, demand=demand), cache
 
@@ -139,7 +168,8 @@ def lm_prefill(params: dict, cfg: ArchConfig, cache: LMCache, tokens: torch.Tens
             positions=positions, pad=pad, theta=cfg.rope_theta, window=cfg.window,
             tiers=tiers, demand=demand)
         x = x + h
-        x = x + L.mlp(bp["mlp"], L.rmsnorm(x, bp["ln2"]), tiers=tiers, demand=demand)
+        # no lane mask: left-pad positions route too, as in the JAX package
+        x = x + _ffn(cfg, bp, L.rmsnorm(x, bp["ln2"]), None, tiers, demand)[0]
         ks.append(c2.k)
         vs.append(c2.v)
         pos.append(c2.pos)
@@ -164,16 +194,17 @@ def lm_verify(params: dict, cfg: ArchConfig, cache: LMCache, tokens: torch.Tenso
     blocks of at most ``SAME_PLAN_ROWS``, each with the GEMV's split), the
     norms and the attention position by position (``layers.per_position``),
     so every row is a decode step's, bit for bit.  ``spec`` marks the
-    speculating lanes (it gates MoE capacity in the JAX package; the dense
-    family does not read it)."""
-    del spec
+    speculating lanes: a MoE block routes the whole (B, W) window in one
+    call with the other lanes out of the competition, so its capacity is
+    set by B x W, as in the JAX package (the dense family does not read
+    it)."""
     if cfg.window is not None:
         raise ValueError("speculative verify requires a full-length KV cache")
     with verify_row_blocks():
-        return _verify(params, cfg, cache, tokens, start, wlen, tiers, demand)
+        return _verify(params, cfg, cache, tokens, start, wlen, tiers, demand, spec)
 
 
-def _verify(params, cfg, cache, tokens, start, wlen, tiers, demand):
+def _verify(params, cfg, cache, tokens, start, wlen, tiers, demand, spec=None):
     x = L.embed(params["embed"], tokens, cfg.dtype)
     kv = cache.kv
     for i in range(cfg.n_layers):
@@ -183,7 +214,7 @@ def _verify(params, cfg, cache, tokens, start, wlen, tiers, demand):
                                   theta=cfg.rope_theta, tiers=tiers, demand=demand)
         x = x + h
         y = L.per_position(lambda r, s=bp["ln2"]: L.rmsnorm(r, s), x)
-        x = x + L.mlp(bp["mlp"], y, tiers=tiers, demand=demand)
+        x = x + _ffn(cfg, bp, y, spec, tiers, demand)[0]
     x = L.per_position(lambda r: L.rmsnorm(r, params["final_norm"]), x)
     return L.lm_head(params["embed"], x, tiers=tiers, demand=demand), cache
 

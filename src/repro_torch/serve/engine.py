@@ -27,6 +27,13 @@ The cost clock, deadlines, cancellation, ``QualityShed`` admission,
 ``stream_stats`` and the analytic byte meter follow the JAX engine
 exactly.
 
+Dense models keep the exactness guarantee: a request's tokens do not
+depend on its batch mates or on when they were admitted.  MoE models keep
+the JAX engine's weaker one: live lanes share expert capacity (dead lanes
+leave the competition, and a verify routes its whole window at once), so
+under capacity overflow an MoE request's tokens can move with its batch
+mates, and speculative tokens need not equal plain decode.
+
 The continuous stream's three steps (decode, admission, verify) read
 their inputs from static buffers of the session and, on a CUDA device,
 run as CUDA graphs captured once per ``demand`` (the verify once per

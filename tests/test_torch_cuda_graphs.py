@@ -18,6 +18,12 @@ cancel and speculating requests, once eagerly and once captured:
   phase too, and the launch counts equal the eager run's;
 * there is one graph per demand (decode, admission) and per (demand,
   window width) (verify), and each step syncs the host exactly once.
+
+The MoE family (the qwen3-moe smoke config: 2 layers, d 64, 8 experts
+top-2, f32) runs the same stream: captured tokens equal eager ones,
+``no_recapture`` holds, and the decode, admission-prefill and verify
+logits of a replayed graph equal the eager ones bit for bit (routing,
+dispatch and the k-way combine have a fixed order on the card).
 """
 import warnings
 
@@ -37,11 +43,12 @@ ENGINE = dict(quality="mid", batch_slots=4, max_prompt=8, max_len=32)
 @pytest.fixture(scope="module", autouse=True)
 def _port():
     """Import the port for this file only (see ``torch_port_scope``)."""
-    global tapi, dispatch, qsq, no_recapture
+    global tapi, dispatch, qsq, no_recapture, StepGraphs
     with port_modules():
         from repro_torch import api as tapi
         from repro_torch.analysis import no_recapture
         from repro_torch.kernels import dispatch, qsq
+        from repro_torch.serve.graphs import StepGraphs
         yield
 
 
@@ -158,3 +165,62 @@ def test_one_host_sync_per_step(art):
     finally:
         torch.cuda.set_sync_debug_mode(0)
     assert per_step and all(s == want for s, want in per_step), per_step
+
+
+@pytest.fixture(scope="module")
+def moe_art():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA graphs capture on the card)")
+    from repro_torch.configs import get_arch
+    from repro_torch.models.api import Model
+    from repro_torch.models.base import init_params
+
+    model = Model(get_arch("qwen3_moe_30b_a3b", smoke=True))
+    params = init_params(model.param_descs(), torch.Generator(device="cuda").manual_seed(0),
+                         device="cuda")
+    return tapi.compress(model, params, device="cuda")
+
+
+def test_moe_captured_tokens_equal_eager_without_recapture(moe_art):
+    eager = _stream(moe_art.engine(device="cuda", eager=True, **ENGINE))
+    eng = moe_art.engine(device="cuda", **ENGINE)
+    assert _stream(eng) == eager
+    n = len(eng._session.graphs)
+    with no_recapture(eng):
+        assert _stream(eng) == eager
+    assert len(eng._session.graphs) == n > 0
+
+
+def test_moe_captured_logits_equal_eager(moe_art):
+    """Decode, admission prefill and verify of the MoE model, each run
+    eagerly on one copy of a primed cache and as a replayed graph on
+    another: logits equal bit for bit."""
+    eng = moe_art.engine(device="cuda", **ENGINE)
+    _stream(eng, cancel=False)
+    s, model, params = eng._session, eng.model, eng.params
+    b, dev = s.sched.n_slots, eng.device
+    g = torch.Generator(device=dev).manual_seed(5)
+    tiers = torch.arange(b, device=dev, dtype=torch.int32) % 3
+    ones = torch.ones_like(tiers)
+    cur = torch.randint(0, CFG["vocab"], (b, 1), generator=g, device=dev, dtype=torch.int32)
+    window = torch.randint(0, CFG["vocab"], (b, 3), generator=g, device=dev, dtype=torch.int32)
+    toks = torch.randint(0, CFG["vocab"], (1, s.prefill_len), generator=g, device=dev,
+                         dtype=torch.int32)
+    lens = torch.full((1,), s.prefill_len, dtype=torch.int32, device=dev)
+    start = torch.full((b,), 12, dtype=torch.int32, device=dev)
+    fns = {
+        "decode": lambda c: model.decode(params, c, {
+            "tokens": cur, "active": ones, "tiers": tiers, "demand": 0})[0],
+        "prefill": lambda c: model.prefill(params, s.zero_slot_cache, toks, lens,
+                                           tiers[1:2], 1)[1],
+        "verify": lambda c: model.verify(params, c, {
+            "tokens": window, "start": start, "wlen": torch.full_like(start, 3),
+            "spec": ones, "tiers": tiers, "demand": 0})[0],
+    }
+    for name, fn in fns.items():
+        caches = [type(s.cache)(kv=type(s.cache.kv)(*(t.clone() for t in s.cache.kv)))
+                  for _ in range(2)]
+        want = fn(caches[0])
+        got = StepGraphs(dev).run(name, lambda c=caches[1], f=fn: f(c),
+                                  restore=(caches[1].kv.pos,))
+        assert torch.equal(want, got), name

@@ -18,8 +18,15 @@ head).
 * an artifact the port writes serves the JAX engine's greedy tokens at
   mixed tiers, with staggered arrivals and a speculating request, and so
   does an artifact the JAX package writes: both directions.
+
+The JAX config modules load only inside :func:`jax_config_scope`:
+hypothesis draws example constants from every loaded local module, so a
+config module left loaded here would change the JAX property tests'
+examples in this xdist worker.
 """
+import contextlib
 import dataclasses
+import sys
 
 import numpy as np
 import pytest
@@ -46,6 +53,19 @@ TOL = dict(atol=1e-4, rtol=1e-4)
 ENGINE = dict(quality="mid", batch_slots=3, max_prompt=8, max_len=24)
 
 
+@contextlib.contextmanager
+def jax_config_scope():
+    """Drop every ``repro.configs`` module first imported inside the block
+    from ``sys.modules`` on exit (see the module docstring)."""
+    before = set(sys.modules)
+    try:
+        yield
+    finally:
+        for name in [m for m in sys.modules
+                     if m not in before and m.startswith("repro.configs.")]:
+            del sys.modules[name]
+
+
 @pytest.fixture(scope="module", autouse=True)
 def _port():
     """Import the port for this file only (see ``torch_port_scope``)."""
@@ -64,7 +84,9 @@ def _port():
 def _cfgs(variant):
     """(JAX config, port config) of a variant's smoke config."""
     arch = variant.removesuffix("_hd32")
-    jcfg, tcfg = jget_arch(arch, smoke=True), tconfigs.get_arch(arch, smoke=True)
+    with jax_config_scope():
+        jcfg = jget_arch(arch, smoke=True)
+    tcfg = tconfigs.get_arch(arch, smoke=True)
     if variant.endswith("_hd32"):
         jcfg = dataclasses.replace(jcfg, head_dim=32, rope_theta=1e6)
         tcfg = dataclasses.replace(tcfg, head_dim=32, rope_theta=1e6)
@@ -92,8 +114,9 @@ def _fields(cfg) -> dict:
 def test_configs_equal_jax(arch):
     assert arch in tconfigs.ARCH_IDS
     for smoke in (False, True):
-        j, t = _fields(jget_arch(arch, smoke=smoke)), _fields(tconfigs.get_arch(arch, smoke))
-        assert j == t
+        with jax_config_scope():
+            j = _fields(jget_arch(arch, smoke=smoke))
+        assert j == _fields(tconfigs.get_arch(arch, smoke))
     full = tconfigs.get_arch(arch)
     assert full.source == {"phi4_mini_3_8b": "arXiv:2412.08905; hf",
                            "qwen3_14b": "hf:Qwen/Qwen3-14B; hf",

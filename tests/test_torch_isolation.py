@@ -54,7 +54,7 @@ def test_port_file_list_is_complete():
     assert {"api.py", "engine.py", "store.py", "qsq.py", "chip_smoke.py", "trainer.py",
             "manager.py", "pipeline.py", "compression.py", "adamw.py", "cnn.py", "csd.py",
             "energy.py", "pytree.py", "packed.py", "graphs.py", "retrace.py",
-            "phi4_mini_3_8b.py", "qwen3_14b.py", "deepseek_7b.py"} <= names
+            "phi4_mini_3_8b.py", "qwen3_14b.py", "deepseek_7b.py", "qwen3_moe_30b_a3b.py"} <= names
     assert ROOT / "src" / "repro_torch" / "launch" / "train.py" in PORT_FILES
     assert ROOT / "src" / "repro_torch" / "analysis" / "retrace.py" in PORT_FILES
     assert len(PORT_FILES) > 20

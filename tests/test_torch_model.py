@@ -157,5 +157,18 @@ def test_windowed_config_raises():
 
 @pytest.mark.parametrize("family", ["moe", "ssm", "vlm"])
 def test_other_families_name_their_roadmap_item(family):
+    """Each unported part names its ROADMAP item: for MoE (ported) the part
+    still missing, the sliding window, which a windowed MoE config reaches
+    at prefill."""
+    if family == "moe":
+        from repro_torch.configs.base import MoEConfig
+
+        m = TModel(TArch(**{**CFG, "family": "moe"}, moe=MoEConfig(n_experts=4, top_k=2),
+                         window=8, dtype=torch.float32))
+        params = tinit(m.param_descs(), device="cpu")
+        cache = tinit(m.cache_descs(1, 16), device="cpu")
+        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
+            m.prefill(params, cache, torch.zeros((1, 4), dtype=torch.int32))
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
         TModel(TArch(**{**CFG, "family": family}, dtype=torch.float32))
