@@ -18,7 +18,8 @@ Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``
    qwen3-14b and deepseek-7b (K to 17408, N to 200064): f32 bound, masked
    == truncated, no bf16 launch on the FMA route, each shape's plan and
    time against ``torch.matmul`` and the byte bound; the same at the three
-   packed shapes of qwen3-moe-30b-a3b (2048x4096, 2048x512, 2048x151936);
+   packed shapes of qwen3-moe-30b-a3b (2048x4096, 2048x512, 2048x151936)
+   and of mixtral-8x22b (6144x6144, 6144x1024, 6144x32768);
 3. the main path at full width: ``api.compress`` of smollm-135m (random
    weights from a seeded ``torch.Generator``), ``save``,
    ``api.load(verify=True)``, ``artifact.engine(quality="mid",
@@ -94,7 +95,24 @@ Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``
    so this is printed, not checked), the peak device memory, and the
    device time split of a decode step (K1/K2, the expert products,
    routing, attention, the rest); the MoE smoke config gives the CPU's
-   tokens on the card.
+   tokens on the card;
+13. mixtral-8x22b at its published widths cut to 2 layers (a reduction of
+   depth only; random init, seed 0), the sliding-window ring (window 4096):
+   compress, save, load(verify), a mixed-tier stream of 12 prompts of
+   3900-4064 tokens on 8 slots (prefill width 4064, 64 new tokens, so every
+   lane's decode wraps the 4096-entry ring) eager and captured with phase
+   3's checks, replayed decode and admission logits equal eager;
+   speculation refused; the decode step's device time split; the peak
+   device memory; the ring's attention against windowed attention, one
+   layer at a time on the same inputs (12 lanes, three evicting), within
+   1e-5 in f64 and f32, two planted ring faults caught; 6 requests through
+   the ring (a 4064-wide admission, 63 decodes) against the windowed
+   full-sequence forward, both dropless and routed alike: logits within
+   1e-6 of the largest in f64, the f32 gaps printed beside the f32
+   forward's own distance from f64; the smoke config's ring (window 32)
+   gives the CPU's tokens on the card
+   in a session whose prefill is wider than the ring and one whose decode
+   wraps it.
 
 Any failed check raises, so the script exits non-zero and prints no
 result.  The second-to-last line is the per-kernel JSON summary and the
@@ -385,6 +403,8 @@ DENSE_SHAPES = {
 # (K, N) of qwen3-moe-30b-a3b's packed leaves: wq, wk/wv, head (the experts
 # serve dense: their expert axis is not a stack axis)
 MOE_SHAPES = {"qwen3-moe-30b-a3b": [(2048, 4096), (2048, 512), (2048, 151936)]}
+# (K, N) of mixtral-8x22b's packed leaves: wq, wk/wv, head
+MIXTRAL_SHAPES = {"mixtral-8x22b": [(6144, 6144), (6144, 1024), (6144, 32768)]}
 
 
 def dense_shapes(torch, gen, flush, by_arch=None) -> dict:
@@ -509,13 +529,15 @@ def _sync_counted(torch, bad):
     return wrapper
 
 
-def serve_stream(torch, eng, prompts, cfg, timed=True, count_syncs=False) -> dict:
+def serve_stream(torch, eng, prompts, cfg, timed=True, count_syncs=False,
+                 max_new=16) -> dict:
     """The mixed-tier stream on ``eng`` (8 requests up front, 4 joining the
-    running decode two steps apart, 16 tokens each, tiers hi/mid/lo in
-    turn): every kernel launches, no plain version runs, no bf16 call takes
-    the FMA route, and the per-call dispatch traffic equals the byte meter.
-    ``timed`` times each admission and decode call (synchronized);
-    ``count_syncs`` instead checks one host sync per step."""
+    running decode two steps apart, ``max_new`` tokens each, tiers
+    hi/mid/lo in turn): every kernel of ``KERNELS`` launches, no plain
+    version runs, no bf16 call takes the FMA route, and the per-call
+    dispatch traffic equals the byte meter.  ``timed`` times each admission
+    and decode call (synchronized); ``count_syncs`` instead checks one host
+    sync per step."""
     from repro_torch.kernels import dispatch, qsq, ref
 
     eng.reset_stream()
@@ -532,12 +554,13 @@ def serve_stream(torch, eng, prompts, cfg, timed=True, count_syncs=False) -> dic
     torch.cuda.synchronize()
     t1 = time.perf_counter()
     try:
-        rids = [eng.submit(p, max_new=16, quality=TIER_NAMES[i % 3])
+        rids = [eng.submit(p, max_new=max_new, quality=TIER_NAMES[i % 3])
                 for i, p in enumerate(prompts[:8])]
         for p_i in range(8, 12):  # later arrivals join the running decode
             eng.step()
             eng.step()
-            rids.append(eng.submit(prompts[p_i], max_new=16, quality=TIER_NAMES[p_i % 3]))
+            rids.append(eng.submit(prompts[p_i], max_new=max_new,
+                                   quality=TIER_NAMES[p_i % 3]))
         eng.run_until_drained()
         torch.cuda.synchronize()
     finally:
@@ -552,7 +575,8 @@ def serve_stream(torch, eng, prompts, cfg, timed=True, count_syncs=False) -> dic
     tokens = []
     for r in rids:
         st = eng.poll(r)
-        if st.finish_reason is None or st.finish_reason.value != "done" or len(st.tokens) != 16:
+        if st.finish_reason is None or st.finish_reason.value != "done" or \
+                len(st.tokens) != max_new:
             raise AssertionError(f"request {r} ended {st.finish_reason} with "
                                  f"{len(st.tokens)} tokens")
         if not all(0 <= t < cfg.vocab for t in st.tokens):
@@ -575,23 +599,27 @@ def serve_stream(torch, eng, prompts, cfg, timed=True, count_syncs=False) -> dic
                 n_decode=len(decode_ms), n_admit=len(admit_ms))
 
 
-def eager_and_captured(torch, art, cfg, label: str, slots=8) -> tuple[dict, dict, object]:
-    """The mixed-tier stream on an eager engine and on a captured one from the
-    same artifact: the captured engine's first run captures, its second is
-    timed, its third runs inside ``no_recapture`` with one host sync a step
-    checked.  Tokens, launch counts and dispatch counters equal the eager
-    run's.  Returns (eager run, captured run, captured engine)."""
+def eager_and_captured(torch, art, cfg, label: str, slots=8, prompts=None, max_new=16,
+                       **eng_kw) -> tuple[dict, dict, object]:
+    """The mixed-tier stream (``prompts``, default :func:`stream_prompts`) on
+    an eager engine and on a captured one from the same artifact: the
+    captured engine's first run captures, its second is timed, its third
+    runs inside ``no_recapture`` with one host sync a step checked.  Tokens,
+    launch counts and dispatch counters equal the eager run's.  ``eng_kw``
+    goes to ``art.engine``.  Returns (eager run, captured run, captured
+    engine)."""
     from repro_torch.analysis import no_recapture
 
-    prompts = stream_prompts(torch, cfg)
-    eager = art.engine(quality="mid", batch_slots=slots, device="cuda", eager=True)
-    e = serve_stream(torch, eager, prompts, cfg)
+    prompts = stream_prompts(torch, cfg) if prompts is None else prompts
+    kw = dict(max_new=max_new)
+    eager = art.engine(quality="mid", batch_slots=slots, device="cuda", eager=True, **eng_kw)
+    e = serve_stream(torch, eager, prompts, cfg, **kw)
     del eager
-    eng = art.engine(quality="mid", batch_slots=slots, device="cuda")
-    serve_stream(torch, eng, prompts, cfg, timed=False)
-    c = serve_stream(torch, eng, prompts, cfg)
+    eng = art.engine(quality="mid", batch_slots=slots, device="cuda", **eng_kw)
+    serve_stream(torch, eng, prompts, cfg, timed=False, **kw)
+    c = serve_stream(torch, eng, prompts, cfg, **kw)
     with no_recapture(eng):
-        again = serve_stream(torch, eng, prompts, cfg, timed=False, count_syncs=True)
+        again = serve_stream(torch, eng, prompts, cfg, timed=False, count_syncs=True, **kw)
     for run, which in ((c, "captured"), (again, "re-run")):
         if run["tokens"] != e["tokens"]:
             bad = [i for i, (a, b) in enumerate(zip(run["tokens"], e["tokens"], strict=True))
@@ -603,7 +631,7 @@ def eager_and_captured(torch, art, cfg, label: str, slots=8) -> tuple[dict, dict
                                  f"{e['launches']}")
     keys = eng._session.graphs.keys()
     tokens = c["stats"]["tokens"]
-    say(f"  {label}: 12 requests x 16 tokens on {slots} slots, eager and captured: tokens "
+    say(f"  {label}: 12 requests x {max_new} tokens on {slots} slots, eager and captured: tokens "
         f"identical, kernel launches identical (replays counted) {c['launches']}, dispatch "
         f"routes {c['counters']}; plain versions 0; bf16 launches on the FMA route 0")
     say(f"  {label}: {len(keys)} graphs {sorted(keys)}; a third run inside no_recapture "
@@ -645,10 +673,11 @@ def graph_logits_equal(torch, eng, label: str) -> None:
             "tokens": cur, "active": ones, "tiers": tiers, "demand": 0})[0],
         "admission prefill": lambda c: model.prefill(params, s.zero_slot_cache, toks, lens,
                                                      tiers[1:2], 1)[1],
-        "verify": lambda c: model.verify(params, c, {
-            "tokens": window, "start": start, "wlen": wlen, "spec": ones, "tiers": tiers,
-            "demand": 0})[0],
     }
+    if model.cfg.window is None:  # a ring cannot verify (it cannot roll back)
+        fns["verify"] = lambda c: model.verify(params, c, {
+            "tokens": window, "start": start, "wlen": wlen, "spec": ones, "tiers": tiers,
+            "demand": 0})[0]
     for name, fn in fns.items():
         caches = [type(s.cache)(kv=type(s.cache.kv)(*(t.clone() for t in s.cache.kv)))
                   for _ in range(2)]
@@ -658,8 +687,8 @@ def graph_logits_equal(torch, eng, label: str) -> None:
         if not torch.equal(want, got):
             raise AssertionError(f"{label}: captured {name} logits differ from eager by "
                                  f"{float((want - got).abs().max()):.3e}")
-    say(f"  {label}: decode, admission-prefill and verify logits of a captured replay equal "
-        f"the eager ones bit for bit")
+    say(f"  {label}: {', '.join(fns)} logits of a captured replay equal the eager ones bit "
+        f"for bit")
 
 
 def serve_full_width(torch, workdir: Path, cfg):
@@ -730,7 +759,8 @@ def profile_admission(torch, eng, prompt, quality, label=""):
         if name:
             by[name] = (by.get(name, (0.0, 0))[0] + t, by.get(name, (0.0, 0))[1] + n)
     k4_us, k4_n = by.get("qsq_matmul_masked", (0.0, 0))
-    say(f"  {label} profile of one admission ({len(prompt)}-token prompt, M=64): wall "
+    say(f"  {label} profile of one admission ({len(prompt)}-token prompt, M="
+        f"{eng._ensure_session().prefill_len}): wall "
         f"{box['wall_us'] / 1e3:.2f} ms, device busy {busy / 1e3:.3f} ms "
         f"({100 * busy / box['wall_us']:.1f}% of wall), {sum(n for _, _, n in kern)} launches; "
         f"K4 {k4_us / 1e3:.3f} ms = {100 * k4_us / max(busy, 1e-9):.1f}% of device time in "
@@ -2174,7 +2204,7 @@ def _decode_prof(torch, eng, prompts, steps, ranges=False):
     return prof, wall_us
 
 
-def profile_moe_decode(torch, eager, eng, prompts, steps=2):
+def profile_moe_decode(torch, eager, eng, prompts, steps=2, label="qwen3-moe"):
     """The device time of a decode step split into K1/K2 (by kernel name),
     the expert products, routing (softmax, top-k, sort, the dispatch
     scatter and the combine's gather), attention (scores, softmax, PV) and
@@ -2212,18 +2242,555 @@ def profile_moe_decode(torch, eager, eng, prompts, steps=2):
     cprof, c_wall = _decode_prof(torch, eng, prompts, steps)
     # the ranges show up as device annotations spanning their kernels
     e_kern = [r for r in device_kernels(prof) if r[0] not in MOE_RANGES]
-    for label, kern, wall, exact in (("eager", e_kern, e_wall, True),
-                                     ("captured", device_kernels(cprof), c_wall, False)):
+    for mode, kern, wall, exact in (("eager", e_kern, e_wall, True),
+                                    ("captured", device_kernels(cprof), c_wall, False)):
         sp, busy = split(kern, exact), sum(t for _, t, _ in kern)
         parts = ", ".join(f"{k} {sp[k] / steps / 1e3:.3f} ms "
                           f"({100 * sp[k] / max(busy, 1e-9):.1f}%)" for k in kinds)
-        say(f"  qwen3-moe {label} decode step (8 slots, profiled): wall {wall / 1e3:.2f} ms, "
+        say(f"  {label} {mode} decode step (8 slots, profiled): wall {wall / 1e3:.2f} ms, "
             f"device busy {busy / steps / 1e3:.3f} ms ({100 * busy / steps / wall:.1f}% of "
             f"wall), {sum(n for _, _, n in kern) // steps} launches; {parts}")
         for name, t, n in sorted(kern, key=lambda r: -r[1])[:8]:
             kind = "K1/K2" if kernel_of(name) else name_kind.get(name, "rest")
             say(f"    {t / steps / 1e3:7.3f} ms/step  {n // steps:5d} launches/step  [{kind}] "
                 f"{name[:80]}")
+
+
+# --------------------------------------------------------------------------
+# Phase 13: the sliding-window ring (mixtral-8x22b)
+# --------------------------------------------------------------------------
+MIX_ARCH = "mixtral_8x22b"
+MIX_LAYERS = 2  # of 56: the same 9.66 GB of dense bf16 experts as [12]'s 8 layers
+MIX_PREFILL, MIX_NEW = 4064, 64  # every lane's decode crosses cache index 4096
+FWD_LEN = 8192  # the forward's padded length: more than window + q_chunk (kv slices)
+RING_ATTN_TOL = 1e-5  # |ring - attention| over max |attention|: one layer, unit score spread
+RING_TOL = 1e-6  # |ring - forward| over max |logit|: f64 (logits end f32), routed alike
+RING_LANES = (0, 1, 3, 4, 9, 10)  # hi and mid (a lo lane's head drops every plane: logits 0)
+
+
+def ring_prompts(torch, cfg, seed=1):
+    """The 12 prompts of [13]'s stream, 3900 to 4064 tokens: with 63
+    decodes the last three outlive the 4096-token window."""
+    rng = torch.Generator().manual_seed(seed)
+    lengths = [3900 + (164 * i) // 11 for i in range(12)]
+    return [torch.randint(0, cfg.vocab, (n,), generator=rng).tolist() for n in lengths]
+
+
+def _tier_tree(torch, params, tier: int):
+    """The served tree at tier index ``tier`` with its packed leaves decoded
+    to f32 (planes truncated as the tier's row masks drop them); the dense
+    leaves are the engine's own tensors."""
+    from repro_torch.quant.store import PackedWeight, is_store
+    from repro_torch.tree import tree_map
+
+    def leaf(p):
+        if isinstance(p, PackedWeight):
+            drop = p.tier_drops[tier] if p.tier_drops else 0
+            return p.truncate(drop).as_dense(torch.float32)
+        return p
+
+    return tree_map(leaf, params, is_leaf=is_store)
+
+
+def _drop_oldest(torch, ring):
+    """A planted fault: the ring's mask one entry short (the oldest of the
+    last ``min(pos + 1, t)`` writes left out)."""
+    def faulty(pos, pad, t):
+        slot, valid = ring(pos, pad, t)
+        age = (slot[:, None] - torch.arange(t, device=pos.device)[None, :]) % t
+        return slot, valid & (age < torch.clamp(pos + 1, max=t)[:, None] - 1)
+    return faulty
+
+
+def _write_ahead(torch, ring):
+    """A planted fault: the step's k/v written one slot past ``pos % t``."""
+    def faulty(pos, pad, t):
+        slot, valid = ring(pos, pad, t)
+        return (slot + 1) % t, valid
+    return faulty
+
+
+def ring_attention(torch, eng, prompts, cfg) -> None:
+    """The ring itself against windowed attention at mixtral's widths, one
+    attention layer at a time, on the same inputs: seeded random rows (one
+    lane per prompt, its length plus ``MIX_NEW - 1``) go through
+    ``layers.attention`` (padded to ``FWD_LEN``: the kv-sliced branch) and
+    through the ring as the engine runs it (``prefill_attention`` of a
+    left-padded ``MIX_PREFILL``-wide prompt per lane, then the 12 lanes
+    decoding together, each at its own ``pos``/``pad``, past the 4096-entry
+    ring's wrap; the last three lanes evict real keys).  The random
+    weights' q and k are ~11x those of a 1 / sqrt(d) init (``fan_in`` of a
+    (d, heads, hd) weight is its heads, as in the JAX package), so at
+    unit-RMS inputs the scores spread over hundreds and attention is nearly
+    one-hot: a key left out would rarely show, and f32 noise is amplified.
+    The rows are scaled so that each layer's scores have unit spread; then
+    every key in the window carries weight.  In f64 and in f32 (the softmax
+    runs in f32 on both sides) the outputs and the k/v left in the ring
+    agree within ``RING_ATTN_TOL`` of the largest |value|, and two planted
+    ring faults (:func:`_drop_oldest`, :func:`_write_ahead`) must each
+    exceed it in f64."""
+    from repro_torch.models import layers
+    from repro_torch.models.transformer import layer_params
+
+    dev, d, t = eng.device, cfg.d_model, cfg.window
+    n_dec = MIX_NEW - 1
+    lens = [len(p) for p in prompts]
+    blocks = _tier_tree(torch, eng.params, 0)["blocks"]
+    ring = layers.ring_entries
+    faults = {"drop_oldest": _drop_oldest(torch, ring), "write_ahead": _write_ahead(torch, ring)}
+    worst = {torch.float64: 0.0, torch.float32: 0.0}
+    caught = {k: [] for k in faults}
+    kw = dict(theta=cfg.rope_theta, window=cfg.window)
+
+    def rel(a, b):
+        return float((a - b).abs().max()) / float(b.abs().max())
+
+    def spread(p, x):  # std of the scores q.k / sqrt(hd) among rows x (S, d), no RoPE
+        q, k, _ = layers._project_qkv(p, x[None], None, cfg.rope_theta)
+        qg = q[0].reshape(x.shape[0], cfg.n_kv, -1, cfg.hd)
+        return float((torch.einsum("skgh,tkh->kgst", qg, k[0]) / cfg.hd ** 0.5).std())
+
+    g = torch.Generator(device=dev).manual_seed(3)
+    unit = torch.randn((512, d), generator=g, device=dev)
+    with torch.no_grad():
+        spreads = [spread(layer_params(blocks, li)["attn"], unit) for li in range(cfg.n_layers)]
+    for dt in worst:
+        g = torch.Generator(device=dev).manual_seed(3)
+        base = [torch.randn((n + n_dec, d), generator=g, device=dev, dtype=dt) for n in lens]
+        for li in range(cfg.n_layers):
+            p = layer_params(blocks, li)["attn"]
+            xs = [x * spreads[li] ** -0.5 for x in base]
+            ref, kref, vref, pre, kv0 = [], [], [], [], []
+            with torch.no_grad():
+                for n, x in zip(lens, xs):
+                    xf = torch.zeros((1, FWD_LEN, d), device=dev, dtype=dt)
+                    xf[0, :len(x)] = x
+                    at = torch.arange(FWD_LEN, device=dev)[None]
+                    ref.append(layers.attention(p, xf, positions=at, **kw)[0, :len(x)])
+                    _, kf, vf = layers._project_qkv(p, xf, at, cfg.rope_theta)
+                    kref.append(kf[0, :len(x)])
+                    vref.append(vf[0, :len(x)])
+                    pad = MIX_PREFILL - n
+                    xp = torch.zeros((1, MIX_PREFILL, d), device=dev, dtype=dt)
+                    xp[0, pad:] = x[:n]
+                    at = torch.clamp(torch.arange(MIX_PREFILL, device=dev) - pad, min=0)[None]
+                    z = torch.zeros((1, t, cfg.n_kv, cfg.hd), device=dev, dtype=dt)
+                    y, c = layers.prefill_attention(
+                        p, xp, layers.KVCache(k=z, v=z, pos=None, pad=None), positions=at,
+                        pad=torch.full((1,), pad, dtype=torch.int32, device=dev), **kw)
+                    pre.append(y[0, pad:])
+                    kv0.append(c)
+                for fault in (None, *faults) if dt == torch.float64 else (None,):
+                    cache = layers.KVCache(*(torch.cat([getattr(c, f) for c in kv0])
+                                             for f in layers.KVCache._fields))
+                    layers.ring_entries = faults[fault] if fault else ring
+                    try:
+                        dec = []
+                        for j in range(n_dec):
+                            xj = torch.stack([x[n + j] for n, x in zip(lens, xs)])[:, None]
+                            y, cache = layers.decode_attention(p, xj, cache, **kw)
+                            dec.append(y[:, 0])
+                    finally:
+                        layers.ring_entries = ring
+                    dec = torch.stack(dec, 1)
+                    errs = []
+                    for b, n in enumerate(lens):
+                        errs.append(rel(torch.cat([pre[b], dec[b]]), ref[b]))
+                        if fault is None:
+                            # the lane's last t writes that are not pad, at slots g % t
+                            top, pad = MIX_PREFILL + n_dec, MIX_PREFILL - n
+                            gl = torch.arange(max(top - t, pad), top, device=dev)
+                            errs.append(rel(cache.k[b, gl % t], kref[b][gl - pad]))
+                            errs.append(rel(cache.v[b, gl % t], vref[b][gl - pad]))
+                    if fault is None:
+                        worst[dt] = max(worst[dt], max(errs))
+                    else:
+                        caught[fault].append(max(errs))
+            del ref, kref, vref, pre, kv0, xs
+    for dt, w in worst.items():
+        if w > RING_ATTN_TOL:
+            raise AssertionError(f"the ring's attention off windowed attention by {w:.3e} of "
+                                 f"the largest value ({dt}) > {RING_ATTN_TOL}")
+    for fault, errs in caught.items():
+        if min(errs) <= RING_ATTN_TOL:
+            raise AssertionError(f"a planted ring fault ({fault}) passes the ring check: "
+                                 f"{errs} within {RING_ATTN_TOL}")
+    say(f"  the ring's attention vs windowed attention, both layers' weights, {len(lens)} "
+        f"lanes of random rows ({lens[0]}-{lens[-1]} + {n_dec}: per-lane prefill, then "
+        f"batched decode across the wrap, the last 3 lanes evicting), the scores' spread at "
+        f"unit-RMS rows " + " / ".join(f"{v:.1f}" for v in spreads) + " (layers), scaled "
+        f"to 1: outputs and the ring's k/v within {worst[torch.float64]:.3e} (f64) and "
+        f"{worst[torch.float32]:.3e} (f32) of the largest value (tolerance {RING_ATTN_TOL}); "
+        f"planted faults in f64: " + ", ".join(f"{k} {min(v):.3e}" for k, v in caught.items())
+        + " (each caught)")
+
+
+class _Recorder:
+    """While installed, records what ``layers.<name>`` returns (its first
+    output; for ``moe_route`` the (T, k) experts, and their weights under
+    ``"weight"``), call by call; ``route`` replaces the routing
+    (:func:`_forced_route`)."""
+
+    def __init__(self, torch, names=("attention", "prefill_attention", "decode_attention",
+                                     "moe_route"), route=None):
+        from repro_torch.models import layers
+
+        self.torch, self.layers, self.names, self.route = torch, layers, names, route
+        self.calls = {n: [] for n in (*names, "weight")}
+        self.orig = {n: getattr(layers, n) for n in names}
+
+    def _call(self, name, *a, **kw):
+        if name != "moe_route":
+            out = self.orig[name](*a, **kw)
+            self.calls[name].append(out[0] if isinstance(out, tuple) else out)
+            return out
+        t, k = a[1].shape[0], kw["top_k"]
+        if self.route is None:
+            out = self.orig[name](*a, **kw)
+        else:
+            out = self.route(self.orig[name], len(self.calls[name]), *a, **kw)
+        self.calls[name].append(out[0].expert.view(t, k))
+        self.calls["weight"].append(out[0].weight.view(t, k))
+        return out
+
+    def __enter__(self):
+        for n in self.names:
+            setattr(self.layers, n, lambda *a, _n=n, **kw: self._call(_n, *a, **kw))
+        return self
+
+    def __exit__(self, *exc):
+        for n in self.names:
+            setattr(self.layers, n, self.orig[n])
+
+    def rows(self, name, nl, n, pad=None, steps=None):
+        """Per layer, the recorded rows of the first ``n`` real positions:
+        of a forward (one call per layer; ``pad`` None), or of a ring run
+        (one prefill call per layer, its first ``pad`` rows cut, then one
+        call per layer a decode step: the calls of ``steps``, by default
+        ``name``'s after the prefill's)."""
+        calls = self.calls[name]
+
+        def flat(c):  # (1, S, d) -> (S, d); experts and weights (T, k) as they are
+            return c.reshape(-1, c.shape[-1]) if c.dim() == 3 else c
+
+        if pad is None:
+            return [flat(c)[:n] for c in calls[:nl]]
+        dec = calls[nl:] if steps is None else self.calls[steps]
+        return [self.torch.cat([flat(calls[li])[pad:]] + [flat(c) for c in dec[li::nl]])[:n]
+                for li in range(nl)]
+
+
+def _forced_route(torch, want, weights, moved):
+    """A ``moe_route`` that takes the experts ``want[layer]`` (n, k) and
+    their weights ``weights[layer]`` for the first n tokens (the rest route
+    as they would), placed in token-major order; ``moved`` collects, per
+    call, the tokens whose own choice of experts was another."""
+    def route(orig, layer, router, xt, *, top_k, cap, active=None):
+        from repro_torch.models.layers import Routing
+
+        r, aux = orig(router, xt, top_k=top_k, cap=cap, active=active)
+        t, e, n = xt.shape[0], router.shape[-1], want[layer].shape[0]
+        ex = r.expert.view(t, top_k).clone()
+        w = r.weight.view(t, top_k).clone()
+        moved.append(int((ex[:n].sort(-1).values != want[layer].sort(-1).values)
+                         .any(-1).sum()))
+        ex[:n], w[:n] = want[layer], weights[layer]
+        flat = ex.reshape(-1)
+        order = torch.argsort(flat, stable=True)
+        starts = torch.searchsorted(flat[order], torch.arange(e, dtype=flat.dtype,
+                                                              device=xt.device), side="left")
+        pos = torch.argsort(order) - starts[flat]
+        return Routing(expert=flat, pos=pos, keep=pos < cap, weight=w.reshape(-1)), aux
+    return route
+
+
+@contextlib.contextmanager
+def _f64_reference(torch):
+    """While installed, ``layers._gqa_scores_apply`` runs its softmax and
+    ``layers.rmsnorm`` its reduction in the input's own dtype (the port's,
+    as the JAX package's, cast to f32 first), for an f64 reference of both
+    sides: an f32 sum's order depends on the tensor's shape on the card."""
+    from repro_torch.models import layers
+
+    orig = layers._gqa_scores_apply, layers.rmsnorm
+
+    def apply(q, k, v, mask):
+        b, s, h, hd = q.shape
+        qg = q.reshape(b, s, k.shape[2], h // k.shape[2], hd)
+        scores = torch.einsum("bskgh,btkh->bkgst", qg, k) / hd ** 0.5
+        scores = torch.where(mask, scores, torch.full((), -1e30, dtype=scores.dtype,
+                                                      device=scores.device))
+        out = torch.einsum("bkgst,btkh->bskgh", torch.softmax(scores, dim=-1), v)
+        return out.reshape(b, s, h, hd)
+
+    def rmsnorm(x, scale, eps=1e-6):
+        return x * torch.rsqrt(torch.mean(x * x, dim=-1, keepdim=True) + eps) * scale.to(x.dtype)
+
+    layers._gqa_scores_apply, layers.rmsnorm = apply, rmsnorm
+    try:
+        yield
+    finally:
+        layers._gqa_scores_apply, layers.rmsnorm = orig
+
+
+def _ring_logits(torch, model, params, prompt, tier: int, dev, feed=None):
+    """One request through the ring as the engine runs it (a left-padded
+    ``MIX_PREFILL``-wide admission, then decode steps at its tier) ->
+    (logits (MIX_NEW, V) f32, tokens): greedy, or fed ``feed``."""
+    from repro_torch.models.base import init_params
+
+    cache = init_params(model.cache_descs(1, MIX_PREFILL + MIX_NEW + 1), device=dev)
+    toks = torch.zeros((1, MIX_PREFILL), dtype=torch.int32)
+    toks[0, MIX_PREFILL - len(prompt):] = torch.tensor(prompt, dtype=torch.int32)
+    tiers = torch.full((1,), tier, dtype=torch.int32, device=dev)
+    lens = torch.full((1,), len(prompt), dtype=torch.int32, device=dev)
+    cache, last = model.prefill(params, cache, toks.to(dev), lens, tiers, tier)
+    rows, out = [last[0]], []
+    for j in range(MIX_NEW):
+        out.append(int(rows[-1].argmax()) if feed is None else feed[j])
+        if j + 1 < MIX_NEW:
+            cur = torch.tensor([[out[-1]]], dtype=torch.int32, device=dev)
+            lg, cache = model.decode(params, cache, {"tokens": cur, "tiers": tiers,
+                                                     "demand": tier})
+            rows.append(lg[0, -1])
+    return torch.stack(rows).float(), out
+
+
+def ring_vs_forward(torch, eng, prompts, cfg) -> None:
+    """The whole model through the ring against the windowed full-sequence
+    forward, lanes ``RING_LANES`` (hi and mid tiers; 9 and 10 outlive the
+    window).  Both sides run mixtral's layers at a capacity factor of E / k,
+    at which no assignment drops (capacity routing would otherwise route a
+    whole sequence otherwise than an admission).  The ring path
+    (``Model.prefill`` and ``Model.decode`` at the lane's tier: a 4064-wide
+    left-padded admission, then 63 decodes across the wrap) picks greedy
+    tokens in bf16 on the engine's served params; the forward
+    (``lm_forward``, right-padded to ``FWD_LEN``: the kv-sliced branch)
+    runs over the prompt and those tokens.
+    * f64, on the tier's decoded tree, the softmax and the norms in f64 on
+      both sides (:func:`_f64_reference`): the ring's logits agree
+      with the forward's within ``RING_TOL`` of the largest |logit| (each
+      lane's largest is nonzero).  The forward takes the ring's experts and
+      weights token by token (:func:`_forced_route`: the f32 router's
+      products differ in their last bits between shapes); how many tokens
+      its own router would have sent elsewhere is printed.
+    * f32 (printed, not held): the engine's served params through the ring
+      against the f32 forward, beside the f32 forward's own distance from
+      the f64 one, with each layer's attention output gap.  At random
+      weights attention is nearly one-hot (:func:`ring_attention`), and
+      each layer amplifies rounding, so two f32 orders of one function
+      differ by ~1e-4 to 1e-3 of the largest |logit|.
+    * The two planted ring faults of :func:`ring_attention`, on the last
+      lane (it evicts): ``write_ahead`` must exceed the bound;
+      ``drop_oldest`` is printed, since at nearly one-hot attention a key
+      left out moves the logits only where it is a query's top key
+      (:func:`ring_attention` catches it at unit spread).
+    * bf16: wherever the forward's top-2 gap exceeds twice its bf16 error
+      (|bf16 logit - f32 logit|), its argmax is the ring's token.  At random
+      weights the near-uniform router lets bf16 rounding flip experts, the
+      error is of the logits' own size and no position may qualify: the
+      count is printed."""
+    import dataclasses as dc
+
+    from repro_torch.models import layers
+    from repro_torch.models.api import Model
+    from repro_torch.models.transformer import lm_forward
+
+    dropless = dc.replace(cfg.moe, capacity_factor=cfg.moe.n_experts / cfg.moe.top_k)
+    m = {dt: Model(dc.replace(cfg, moe=dropless, dtype=dt))
+         for dt in (torch.bfloat16, torch.float32, torch.float64)}
+    m16, m32, m64 = m.values()
+    nl, dev = cfg.n_layers, eng.device
+    ring_fn, caught = layers.ring_entries, {}
+
+    def rel(a, b):
+        return float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+
+    n_sure = agree = 0
+    worst = worst32 = 0.0
+    for i in RING_LANES:
+        prompt, tier = prompts[i], i % 3
+        n, pad = len(prompt) + MIX_NEW - 1, MIX_PREFILL - len(prompt)
+        dense = _tier_tree(torch, eng.params, tier)
+        seq = torch.zeros((1, FWD_LEN), dtype=torch.int32, device=dev)
+        at = slice(len(prompt) - 1, len(prompt) - 1 + MIX_NEW)
+        moved = []
+        with torch.no_grad():
+            _, out = _ring_logits(torch, m16, eng.params, prompt, tier, dev)
+            seq[0, :n] = torch.tensor(prompt + out[:-1], dtype=torch.int32)
+            with _f64_reference(torch):
+                with _Recorder(torch) as r64:
+                    ring64, _ = _ring_logits(torch, m64, dense, prompt, tier, dev, feed=out)
+                route = _forced_route(torch, r64.rows("moe_route", nl, n, pad),
+                                      r64.rows("weight", nl, n, pad), moved)
+                with _Recorder(torch, route=route) as f64:
+                    fwd64 = lm_forward(dense, m64.cfg, seq)[0, at]
+            with _Recorder(torch) as r32:
+                ring32, _ = _ring_logits(torch, m32, eng.params, prompt, tier, dev, feed=out)
+            with _Recorder(torch) as f32:
+                fwd32 = lm_forward(dense, m32.cfg, seq)[0, at]
+            fwd16 = lm_forward(dense, m16.cfg, seq)[0, at]
+        scale = float(fwd64.abs().max())
+        if scale == 0:
+            raise AssertionError(f"lane {i}: the forward's logits are all 0")
+        d64 = rel(ring64, fwd64)
+        worst, worst32 = max(worst, d64), max(worst32, rel(ring32, fwd32))
+        layer_gaps = []
+        for li in range(nl):
+            gaps = []
+            for rr, ff in ((r64, f64), (r32, f32)):
+                ra = rr.rows("prefill_attention", nl, n, pad, steps="decode_attention")[li]
+                gaps.append(rel(ra, ff.rows("attention", nl, n)[li]))
+            diff = (r32.rows("moe_route", nl, n, pad)[li].sort(-1).values
+                    != f32.rows("moe_route", nl, n)[li].sort(-1).values).any(-1)
+            layer_gaps.append(f"L{li} attention {gaps[0]:.2e} (f64) {gaps[1]:.2e} (f32), "
+                              f"{int(diff.sum())} tokens routed otherwise in f32")
+        say(f"    lane {i} ({TIER_NAMES[tier]}, {len(prompt)} tokens, max |logit| "
+            f"{scale:.3f}): |ring - forward| f64 {d64:.3e} (forced tokens {sum(moved)}); f32 "
+            f"{rel(ring32, fwd32):.3e}, f32 forward vs f64 {rel(fwd32, fwd64):.3e}, f32 ring "
+            f"vs f64 {rel(ring32, ring64):.3e}; " + "; ".join(layer_gaps))
+        if d64 > RING_TOL:
+            raise AssertionError(f"lane {i} ({TIER_NAMES[tier]}): f64 ring logits off the "
+                                 f"windowed forward's by {d64:.3e} of the largest > {RING_TOL}")
+        if i == RING_LANES[-1]:  # it evicts: what each planted ring fault moves
+            for name, fault in (("drop_oldest", _drop_oldest), ("write_ahead", _write_ahead)):
+                layers.ring_entries = fault(torch, ring_fn)
+                try:
+                    with torch.no_grad(), _f64_reference(torch):
+                        bad, _ = _ring_logits(torch, m64, dense, prompt, tier, dev, feed=out)
+                finally:
+                    layers.ring_entries = ring_fn
+                caught[name] = rel(bad, fwd64)
+            if caught["write_ahead"] <= RING_TOL:
+                raise AssertionError(f"lane {i}: a ring writing one slot ahead passes the "
+                                     f"bound: {caught['write_ahead']:.3e} <= {RING_TOL}")
+        err = (fwd16 - fwd32).abs().amax(-1)
+        top = torch.topk(fwd16, 2, dim=-1).values
+        sure = (top[:, 0] - top[:, 1]) > 2 * err
+        arg = fwd16.argmax(-1).cpu()
+        bad = [j for j in range(MIX_NEW) if bool(sure[j]) and int(arg[j]) != out[j]]
+        if bad:
+            raise AssertionError(f"lane {i} ({TIER_NAMES[tier]}): the ring's tokens leave "
+                                 f"the windowed forward's argmax at {bad}, top-2 gap above "
+                                 f"twice the bf16 error")
+        n_sure += int(sure.sum())
+        agree += int((arg == torch.tensor(out)).sum())
+        del dense, r64, f64, r32, f32
+    say(f"  the model through the ring vs the windowed forward, lanes {list(RING_LANES)} "
+        f"({MIX_PREFILL}-wide admission + {MIX_NEW - 1} decodes across the wrap; the forward "
+        f"padded to {FWD_LEN}; capacity factor {dropless.capacity_factor:g}): logits max "
+        f"|ring - forward| {worst:.3e} of the largest |logit| in f64 (tolerance {RING_TOL}), "
+        f"{worst32:.3e} in f32 (printed); planted ring faults, lane {RING_LANES[-1]}: "
+        + ", ".join(f"{k} {v:.3e}" for k, v in caught.items()) + f" (write_ahead held); "
+        f"bf16: "
+        f"forward argmax == ring token at {agree} of {len(RING_LANES) * MIX_NEW} positions; "
+        f"{n_sure} with a top-2 gap above twice the bf16 error"
+        + (" (none: the rule checks nothing here)" if n_sure == 0 else ""))
+
+
+def mixtral_full_width(torch, workdir: Path) -> dict:
+    """mixtral-8x22b at its published widths cut to ``MIX_LAYERS`` layers
+    (random weights from seed 0) through the main path: compress, save,
+    load(verify=True), engine(quality="mid", max_prompt=4064); a mixed-tier
+    stream of 3900-4064-token prompts and 64 new tokens each, eager and
+    captured (the ring wraps at cache index 4096 in every lane's decode);
+    replayed decode and admission logits equal eager; the ring against the
+    windowed forward; speculation refused; the split of a decode step.
+    Then the smoke config (window 32) gives the CPU's tokens on the card.
+    Returns the captured stream's launches."""
+    import gc
+
+    from repro_torch import api
+    from repro_torch.configs import get_arch
+
+    gc.collect()  # [12]'s engines and graph pools
+    torch.cuda.empty_cache()
+    full = get_arch(MIX_ARCH)
+    cfg = dataclasses.replace(full, n_layers=MIX_LAYERS)
+    e_bytes = 3 * cfg.moe.n_experts * cfg.d_model * cfg.d_ff * 2 * cfg.n_layers
+    say(f"  reduced: n_layers {full.n_layers} -> {cfg.n_layers}, nothing else (d {cfg.d_model}, "
+        f"{cfg.n_heads}/{cfg.n_kv} heads of {cfg.hd}, {cfg.moe.n_experts} experts top-"
+        f"{cfg.moe.top_k} of d_ff {cfg.d_ff}, vocab {cfg.vocab}, window {cfg.window}, bf16); "
+        f"dense bf16 experts {e_bytes / 1e9:.2f} GB, {e_bytes / HBM_BYTES_PER_S * 1e3:.3f} ms a "
+        f"decode step at the byte bound")
+    torch.cuda.reset_peak_memory_stats()
+    art, path, t_save, t_load = compress_saved(torch, workdir, cfg, MIX_ARCH)
+    say(f"  artifact {path.stat().st_size / 2**30:.3f} GiB, compress+save {t_save:.1f} s, "
+        f"load(verify) {t_load:.1f} s; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    path.unlink()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    kw = dict(max_prompt=MIX_PREFILL, max_len=MIX_PREFILL + MIX_NEW + 1)
+    prompts = ring_prompts(torch, cfg)
+    _, c, eng = eager_and_captured(torch, art, cfg, "mixtral-8x22b", prompts=prompts,
+                                   max_new=MIX_NEW, **kw)
+    say(f"  the ring: {eng._session.cache.kv.k.shape[2]} entries for a {kw['max_len']}-"
+        f"position slot")
+    graph_logits_equal(torch, eng, "mixtral-8x22b")
+    profile_admission(torch, eng, prompts[11], "mid", label="mixtral-8x22b captured")
+    try:
+        eng.submit(prompts[0], max_new=4, speculate=api.SpecConfig("lo", k=2))
+    except api.SubmitRejected as e:
+        say(f"  speculation refused: {e}")
+    else:
+        raise AssertionError("mixtral-8x22b: a speculating request was admitted")
+    eager = art.engine(quality="mid", batch_slots=8, device="cuda", eager=True, **kw)
+    profile_moe_decode(torch, eager, eng, prompts[:8], label="mixtral-8x22b")
+    say(f"  peak device memory while serving (two engines' dense experts): "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    del eager
+    gc.collect()
+    torch.cuda.empty_cache()
+    ring_attention(torch, eng, prompts, cfg)
+    ring_vs_forward(torch, eng, prompts, cfg)
+    say(f"  peak device memory over [13]'s serving: "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    del eng, art
+    gc.collect()
+    torch.cuda.empty_cache()
+    ring_card_vs_cpu(torch, workdir, get_arch(MIX_ARCH, smoke=True))
+    return c["launches"]
+
+
+def ring_card_vs_cpu(torch, workdir: Path, cfg) -> None:
+    """The smoke config's ring (window 32) on the card (captured engine)
+    against the CPU: identical greedy tokens in two sessions, one whose
+    40-token prefill is wider than the ring (the last 32 tokens kept at
+    slots i % 32) and one whose 16-token prefill fits and whose 60 new
+    tokens wrap it; both run past 64 positions."""
+    from repro_torch import api
+
+    model, params = d64_model_params(torch, cfg)
+    path = api.compress(model, params, device="cpu").save(workdir / "swa.edge.npz")
+    art = api.load(path)
+    quals = ["hi", "lo", "mid", "hi", "mid"]
+    sessions = (((40, 7, 33, 21, 38), 40, 40), ((16, 5, 11, 9), 16, 60))
+    toks = {}
+    for dev in ("cpu", "cuda"):
+        toks[dev] = []
+        for lens, prefill, new in sessions:
+            gen = torch.Generator().manual_seed(8 + prefill)
+            prompts = [torch.randint(0, cfg.vocab, (n,), generator=gen).tolist() for n in lens]
+            eng = art.engine(quality="mid", batch_slots=4, max_prompt=prefill,
+                             max_len=prefill + new + 1, device=dev)
+            rids = [eng.submit(p, max_new=new, quality=q) for p, q in zip(prompts[:3], quals)]
+            eng.step()
+            rids += [eng.submit(p, max_new=new, quality=q)
+                     for p, q in zip(prompts[3:], quals[3:])]
+            eng.run_until_drained()
+            if eng._session.cache.kv.k.shape[2] != cfg.window:
+                raise AssertionError("the smoke ring is not window-long")
+            toks[dev].append([eng.poll(r).tokens for r in rids])
+            if dev == "cuda" and len(eng._session.graphs) == 0:
+                raise AssertionError("the card engine captured no graph")
+    if toks["cpu"] != toks["cuda"]:
+        raise AssertionError(f"ring tokens differ between card and CPU:\n{toks}")
+    n = sum(len(t) for sess in toks["cuda"] for t in sess)
+    say(f"  {cfg.name}: {n} greedy tokens identical on card (captured) and CPU over two "
+        f"sessions (prefill 40 > window 32, then 40 new; prefill 16, then 60 new: the ring "
+        f"wraps in both, up to 80 and 76 positions)")
+    path.unlink()
 
 
 def main() -> int:
@@ -2268,6 +2835,8 @@ def main() -> int:
     dense = dense_shapes(torch, gen, flush)
     say("[2] K1-K4 at the packed shapes of qwen3-moe-30b-a3b")
     moe_shapes = dense_shapes(torch, gen, flush, MOE_SHAPES)
+    say("[2] K1-K4 at the packed shapes of mixtral-8x22b")
+    mix_shapes = dense_shapes(torch, gen, flush, MIXTRAL_SHAPES)
     del flush
 
     workdir = ROOT / "build" / "smoke"
@@ -2312,6 +2881,9 @@ def main() -> int:
     say(f"[12] qwen3-moe-30b-a3b at its published widths ({MOE_LAYERS} layers), eager and "
         f"captured; the MoE smoke config, card against CPU")
     moe_launches = moe_full_width(torch, workdir)
+    say(f"[13] mixtral-8x22b at its published widths ({MIX_LAYERS} layers) through the "
+        f"sliding-window ring, eager and captured; the smoke config's ring, card against CPU")
+    mix_launches = mixtral_full_width(torch, workdir)
 
     for name, row in rows.items():
         row["launches"] = launches.get(name, 0)
@@ -2324,6 +2896,10 @@ def main() -> int:
         rows[name]["launches_packed_params"] = packed_launches.get(name, 0)
         rows[name]["launches_phi4_mini"] = phi4_launches.get(name, 0)
         rows[name]["launches_qwen3_moe"] = moe_launches.get(name, 0)
+        rows[name]["launches_mixtral"] = mix_launches.get(name, 0)
+        rows[name].update(mixtral_shapes_ms=mix_shapes[name]["ms"],
+                          mixtral_shapes_library_ms=mix_shapes[name]["library_ms"],
+                          mixtral_shapes_bound_ms=mix_shapes[name]["bound_ms"])
         rows[name].update(dense_shapes_ms=dense[name]["ms"],
                           dense_shapes_library_ms=dense[name]["library_ms"],
                           dense_shapes_bound_ms=dense[name]["bound_ms"],

@@ -60,7 +60,8 @@ class ArchConfig:
         return self.head_dim or self.d_model // self.n_heads
 
 
-ARCH_IDS = ["smollm_135m", "phi4_mini_3_8b", "qwen3_14b", "deepseek_7b", "qwen3_moe_30b_a3b"]
+ARCH_IDS = ["smollm_135m", "phi4_mini_3_8b", "qwen3_14b", "deepseek_7b", "qwen3_moe_30b_a3b",
+            "mixtral_8x22b"]
 
 
 def canonical(arch_id: str) -> str:

@@ -138,3 +138,11 @@ def plane_crcs(codes, bits: int = 3) -> tuple[int, ...]:
         out.append(zlib.crc32(row.tobytes()) & 0xFFFFFFFF)
     return tuple(out)
 
+
+
+# --------------------------------------------------------------------------
+# Wire-format byte accounting (drives the Eq. 11/12 energy model)
+# --------------------------------------------------------------------------
+def wire_bytes(n_codes: int, n_scales: int, bits: int = 3, scalar_bits: int = 32) -> int:
+    """Bytes on the channel for a packed tensor: codes + full-precision scalars."""
+    return 4 * dense_words(n_codes, bits) + (scalar_bits // 8) * n_scales

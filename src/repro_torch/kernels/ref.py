@@ -70,6 +70,16 @@ def qsq_dequant_ref(planes, scales, group_size: int, *, sign_mag: bool = False,
     return _scale(_decode(codes & code_mask, sign_mag), scales, group_size)
 
 
+def qsq_dequant_masked_ref(planes, scales, group_size: int, code_mask: int, *,
+                           sign_mag: bool = False, plane_major: bool = False,
+                           n_planes: int = 3) -> torch.Tensor:
+    """Dequant with ``code_mask`` ANDed onto every 3-bit code first: on
+    full-quality planes it equals a plain decode of planes whose dropped
+    LSB words were zeroed (``PackedWeight.truncate``)."""
+    return qsq_dequant_ref(planes, scales, group_size, sign_mag=sign_mag,
+                           plane_major=plane_major, n_planes=n_planes, code_mask=code_mask)
+
+
 def _dot(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """x @ w.astype(x.dtype), products accumulated in f32."""
     return torch.matmul(x.to(torch.float32), w.to(x.dtype).to(torch.float32))

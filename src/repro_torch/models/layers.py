@@ -15,9 +15,11 @@ backward kernels either.
 decoded to dense at load, as the JAX package serves them, and contract in
 batched products over the expert axis.
 
-Not ported yet: the sliding-window ring buffer (ROADMAP Queue 1, item 8b)
-and cross attention (item 10).  A windowed config raises rather than
-being served or trained wrong.
+With a sliding window (``window``), the training attention masks keys
+older than the window, and the decode cache is a ring of
+``min(cache_len, window)`` entries: token i lives at slot ``i % t``.
+
+Not ported yet: cross attention (ROADMAP Queue 1, item 10).
 """
 from __future__ import annotations
 
@@ -135,12 +137,16 @@ def _gqa_scores_apply(q, k, v, mask):
     return out.reshape(b, s, h, hd)
 
 
-def causal_mask(s: int, t: int, offset: int = 0, device="cpu") -> torch.Tensor:
+def causal_mask(s: int, t: int, offset: int = 0, window: int | None = None,
+                device="cpu") -> torch.Tensor:
     """(s, t) boolean mask; query i (global position offset + i) sees key
-    j <= offset + i."""
+    j iff j <= offset + i and (no window or offset + i - j < window)."""
     qi = offset + torch.arange(s, device=device)[:, None]
     kj = torch.arange(t, device=device)[None, :]
-    return kj <= qi
+    m = kj <= qi
+    if window is not None:
+        m = m & (qi - kj < window)
+    return m
 
 
 def _out_proj(p: dict, out: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
@@ -149,7 +155,8 @@ def _out_proj(p: dict, out: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
 
 class KVCache(NamedTuple):
     """Decode-time cache; ``pos`` and ``pad`` are PER SLOT (see the JAX
-    package's ``KVCache``)."""
+    package's ``KVCache``).  With a sliding window the buffers are a ring
+    of ``t <= window`` entries; otherwise they are full-length."""
 
     k: torch.Tensor  # (B, T, Kv, hd)
     v: torch.Tensor
@@ -168,34 +175,58 @@ def kv_cache_descs(b: int, t: int, n_kv: int, head_dim: int, dtype) -> KVCache:
     )
 
 
-def _no_window(window):
-    if window is not None:
-        raise NotImplementedError(
-            "sliding-window attention (the SWA ring buffer) is not ported yet: "
-            "ROADMAP Queue 1, item 8b")
-
-
 def attention(p: dict, x: torch.Tensor, *, positions: torch.Tensor | None = None,
               theta: float = 10000.0, window: int | None = None,
               q_chunk: int = 2048) -> torch.Tensor:
     """Full-sequence (training) causal GQA attention over x (B, S, d).
+
     Sequences longer than ``q_chunk`` run in q-chunks, so the score matrix
-    never exceeds (chunk x S)."""
-    _no_window(window)
+    never exceeds (chunk x S); with a sliding window shorter than
+    ``S - q_chunk`` each chunk also sees only a ``(window + q_chunk)`` kv
+    slice, so windowed attention is sub-quadratic."""
     s = x.shape[1]
     q, k, v = _project_qkv(p, x, positions, theta)
     if s <= q_chunk:
-        out = _gqa_scores_apply(q, k, v, causal_mask(s, s, device=x.device)[None, None, None])
-    else:
-        if s % q_chunk:
-            raise ValueError(f"sequence length {s} is not a multiple of q_chunk={q_chunk}")
-        outs = []
+        m = causal_mask(s, s, window=window, device=x.device)
+        return _out_proj(p, _gqa_scores_apply(q, k, v, m[None, None, None]), x)
+    if s % q_chunk:
+        raise ValueError(f"sequence length {s} is not a multiple of q_chunk={q_chunk}")
+    outs = []
+    if window is not None and window + q_chunk < s:
+        # k/v left-padded by ``window``: chunk i's slice starts at global
+        # position i * q_chunk - window
+        kp = F.pad(k, (0, 0, 0, 0, window, 0))
+        vp = F.pad(v, (0, 0, 0, 0, window, 0))
+        kv_len = window + q_chunk
+        ar_q = torch.arange(q_chunk, device=x.device)[:, None]
+        ar_k = torch.arange(kv_len, device=x.device)[None, :]
         for i in range(s // q_chunk):
-            m = causal_mask(q_chunk, s, offset=i * q_chunk, device=x.device)
+            start = i * q_chunk
+            qpos, kpos = start + ar_q, start - window + ar_k
+            m = (kpos <= qpos) & (qpos - kpos < window) & (kpos >= 0)
+            outs.append(_gqa_scores_apply(q[:, start:start + q_chunk],
+                                          kp[:, start:start + kv_len],
+                                          vp[:, start:start + kv_len], m[None, None, None]))
+    else:
+        for i in range(s // q_chunk):
+            m = causal_mask(q_chunk, s, offset=i * q_chunk, window=window, device=x.device)
             outs.append(_gqa_scores_apply(q[:, i * q_chunk:(i + 1) * q_chunk], k, v,
                                           m[None, None, None]))
-        out = torch.cat(outs, dim=1)
-    return _out_proj(p, out, x)
+    return _out_proj(p, torch.cat(outs, dim=1), x)
+
+
+def ring_entries(pos: torch.Tensor, pad: torch.Tensor,
+                 t: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """A sliding-window ring of ``t`` entries at a decode step -> (the slot
+    (B,) int64 the step's k/v go to, ``pos % t``; the (B, t) mask of the
+    entries its query sees).  An entry's age counts the writes since it, so
+    its global index is ``pos - age``: it is seen iff it is one of the last
+    ``min(pos + 1, t)`` writes and not left pad."""
+    slot = (pos % t).to(torch.int64)
+    idx = torch.arange(t, device=pos.device)
+    age = (slot[:, None] - idx[None, :]) % t
+    valid = (age < torch.clamp(pos + 1, max=t)[:, None]) & (pos[:, None] - age >= pad[:, None])
+    return slot, valid
 
 
 def decode_attention(p: dict, x: torch.Tensor, cache: KVCache, *, theta: float = 10000.0,
@@ -203,24 +234,26 @@ def decode_attention(p: dict, x: torch.Tensor, cache: KVCache, *, theta: float =
                      active: torch.Tensor | None = None, tiers: torch.Tensor | None = None,
                      demand: int | None = None) -> tuple[torch.Tensor, KVCache]:
     """One-token decode: x (B, 1, d).  Each slot writes its k/v at its own
-    ``pos[b]`` — IN PLACE into ``cache.k``/``cache.v`` (the live cache is
-    updated where it lies, no copy) — and attends over
-    ``pad[b] <= idx <= pos[b]``.  ``pos`` advances in place too; inactive
-    lanes do not advance it."""
-    _no_window(window)
+    ``pos[b]`` (``pos[b] % t`` in a sliding-window ring) — IN PLACE into
+    ``cache.k``/``cache.v`` (the live cache is updated where it lies, no
+    copy) — and attends over ``pad[b] <= idx <= pos[b]``, or in a ring over
+    the last ``min(pos[b] + 1, t)`` writes that are not left pad.  ``pos``
+    advances in place too; inactive lanes do not advance it."""
     b = x.shape[0]
     t = cache.k.shape[1]
     positions = (cache.pos - cache.pad)[:, None] if use_rope else None
     q, k_new, v_new = _project_qkv(p, x, positions, theta, tiers, demand)
 
-    slot = torch.clamp(cache.pos, max=t - 1).to(torch.int64)
+    if window is not None:
+        slot, valid = ring_entries(cache.pos, cache.pad, t)
+    else:
+        slot = torch.clamp(cache.pos, max=t - 1).to(torch.int64)
+        idx = torch.arange(t, device=x.device)
+        valid = (idx[None, :] <= cache.pos[:, None]) & (idx[None, :] >= cache.pad[:, None])
     bidx = torch.arange(b, device=x.device)
     k, v = cache.k, cache.v
     k[bidx, slot] = k_new[:, 0].to(k.dtype)
     v[bidx, slot] = v_new[:, 0].to(v.dtype)
-
-    idx = torch.arange(t, device=x.device)
-    valid = (idx[None, :] <= cache.pos[:, None]) & (idx[None, :] >= cache.pad[:, None])
     mask = valid[:, None, None, None, :]  # (B,1,1,1,T)
 
     out = _gqa_scores_apply(q, k.to(q.dtype), v.to(q.dtype), mask)
@@ -236,25 +269,31 @@ def prefill_attention(p: dict, x: torch.Tensor, cache: KVCache, *,
                       window: int | None = None, tiers: torch.Tensor | None = None,
                       demand: int | None = None) -> tuple[torch.Tensor, KVCache]:
     """Full-sequence cache prefill over a left-padded prompt x (B, S, d) in
-    one pass: causal + left-pad masked attention, then the projected k/v
-    land in cache slots [0, S) of a NEW cache (the input cache is left
-    untouched, so a zeroed cache can be reused)."""
-    _no_window(window)
+    one pass: causal (windowed) + left-pad masked attention, then the
+    projected k/v land in cache slots [0, S) of a NEW cache (the input
+    cache is left untouched, so a zeroed cache can be reused).  A
+    sliding-window ring shorter than the prompt keeps its last t tokens,
+    token i at slot ``i % t``."""
     b, s, _ = x.shape
     t = cache.k.shape[1]
-    if s > t:
+    if s > t and window is None:
         raise ValueError(f"prompt width {s} exceeds the {t}-entry cache")
     q, k_new, v_new = _project_qkv(p, x, positions, theta, tiers, demand)
 
     kj = torch.arange(s, device=x.device)[None, None, :]
-    mask = causal_mask(s, s, device=x.device)[None] & (kj >= pad[:, None, None])
+    mask = causal_mask(s, s, window=window, device=x.device)[None] & (kj >= pad[:, None, None])
     out = _gqa_scores_apply(q, k_new, v_new, mask[:, None, None])
     y = _out_proj(p, out, x)
 
     k = cache.k.clone()
     v = cache.v.clone()
-    k[:, :s] = k_new.to(k.dtype)
-    v[:, :s] = v_new.to(v.dtype)
+    if s <= t:
+        k[:, :s] = k_new.to(k.dtype)
+        v[:, :s] = v_new.to(v.dtype)
+    else:
+        keep = torch.arange(s - t, s, device=x.device)
+        k[:, keep % t] = k_new[:, keep].to(k.dtype)
+        v[:, keep % t] = v_new[:, keep].to(v.dtype)
     pos = torch.full((b,), s, dtype=torch.int32, device=x.device)
     return y, KVCache(k=k, v=v, pos=pos, pad=pad)
 

@@ -121,8 +121,11 @@ class LMCache(NamedTuple):
 
 
 def lm_cache_descs(cfg: ArchConfig, batch: int, cache_len: int) -> LMCache:
+    """The decode cache of ``cache_len`` logical positions; with a sliding
+    window its physical length is ``min(cache_len, window)`` (a ring)."""
+    t = min(cache_len, cfg.window) if cfg.window else cache_len
     return LMCache(kv=map_stacked(
-        cfg.n_layers, L.kv_cache_descs(batch, cache_len, cfg.n_kv, cfg.hd, cfg.dtype)))
+        cfg.n_layers, L.kv_cache_descs(batch, t, cfg.n_kv, cfg.hd, cfg.dtype)))
 
 
 def _layer_cache(kv: L.KVCache, i: int) -> L.KVCache:

@@ -286,8 +286,9 @@ class EdgeArtifact:
         return quality, ceiling
 
     # -- realization ------------------------------------------------------
-    def tree(self, device="cpu"):
-        """Decode the wire to a WeightStore tree (QSQWeight leaves) on ``device``."""
+    def tree(self, device="cuda"):
+        """Decode the wire to a WeightStore tree (QSQWeight leaves) on ``device``
+        (the card unless the caller asks for the CPU)."""
         from repro_torch.models.base import resolve_device
 
         return tree_from_wire(self.wire, resolve_device(device))

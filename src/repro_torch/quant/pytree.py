@@ -60,6 +60,9 @@ def pack_pytree_wire(qp: QuantizedParams):
     return _store.tree_to_wire(qp.tree)
 
 
-def unpack_pytree_wire(wire, device="cpu") -> QuantizedParams:
-    """Inverse of :func:`pack_pytree_wire` (lossless), tensors on ``device``."""
-    return QuantizedParams(tree=_store.tree_from_wire(wire, device))
+def unpack_pytree_wire(wire, device="cuda") -> QuantizedParams:
+    """Inverse of :func:`pack_pytree_wire` (lossless), tensors on ``device``
+    (the card unless the caller asks for the CPU)."""
+    from repro_torch.models.base import resolve_device
+
+    return QuantizedParams(tree=_store.tree_from_wire(wire, resolve_device(device)))

@@ -71,6 +71,16 @@ def test_dense_wire_bit_exact(n):
             np.asarray(jcodec.unpack_dense(jnp.asarray(jw), n, bits=bits)))
 
 
+def test_wire_bytes_matches_jax():
+    for n_codes in (0, 1, 10, 11, 1000, 576 * 49152):
+        for n_scales in (0, 1, n_codes // 16):
+            for bits in (2, 3):
+                for scalar_bits in (16, 32):
+                    assert tcodec.wire_bytes(n_codes, n_scales, bits, scalar_bits) == \
+                        jcodec.wire_bytes(n_codes, n_scales, bits, scalar_bits)
+    assert tcodec.wire_bytes(10, 1) == 4 + 4
+
+
 def test_plane_crcs_equal():
     for shape in SHAPES:
         c = _codes(shape, seed=2)

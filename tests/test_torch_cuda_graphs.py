@@ -24,6 +24,12 @@ top-2, f32) runs the same stream: captured tokens equal eager ones,
 ``no_recapture`` holds, and the decode, admission-prefill and verify
 logits of a replayed graph equal the eager ones bit for bit (routing,
 dispatch and the k-way combine have a fixed order on the card).
+
+The sliding-window ring (the mixtral-8x22b smoke config: window 32, f32)
+serves prompts wider than the ring and decodes past it: captured tokens
+equal eager ones without re-capture, and the replayed decode and
+admission-prefill logits on the wrapped cache equal the eager ones bit for
+bit.
 """
 import warnings
 
@@ -216,6 +222,63 @@ def test_moe_captured_logits_equal_eager(moe_art):
         "verify": lambda c: model.verify(params, c, {
             "tokens": window, "start": start, "wlen": torch.full_like(start, 3),
             "spec": ones, "tiers": tiers, "demand": 0})[0],
+    }
+    for name, fn in fns.items():
+        caches = [type(s.cache)(kv=type(s.cache.kv)(*(t.clone() for t in s.cache.kv)))
+                  for _ in range(2)]
+        want = fn(caches[0])
+        got = StepGraphs(dev).run(name, lambda c=caches[1], f=fn: f(c),
+                                  restore=(caches[1].kv.pos,))
+        assert torch.equal(want, got), name
+
+
+def test_ring_captured_equals_eager_without_recapture():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA graphs capture on the card)")
+    from repro_torch.configs import get_arch
+    from repro_torch.models.api import Model
+    from repro_torch.models.base import init_params
+
+    model = Model(get_arch("mixtral_8x22b", smoke=True))
+    params = init_params(model.param_descs(), torch.Generator(device="cuda").manual_seed(0),
+                         device="cuda")
+    art = tapi.compress(model, params, device="cuda")
+    # prompts up to 40 wide into a 32-entry ring, 30 new tokens: every lane wraps
+    kw = dict(quality="mid", batch_slots=4, max_prompt=40, max_len=71)
+    g = torch.Generator().manual_seed(6)
+    prompts = [torch.randint(0, 256, (n,), generator=g).tolist() for n in (40, 7, 33, 21, 38)]
+    tiers = ["hi", "lo", "mid", "hi", "mid"]
+
+    def stream(eng):
+        eng.reset_stream()
+        rids = [eng.submit(p, max_new=30, quality=q) for p, q in zip(prompts[:3], tiers)]
+        eng.step()
+        rids += [eng.submit(p, max_new=30, quality=q) for p, q in zip(prompts[3:], tiers[3:])]
+        eng.run_until_drained()
+        return [(eng.poll(r).finish_reason.value, eng.poll(r).tokens) for r in rids]
+
+    eager = stream(art.engine(device="cuda", eager=True, **kw))
+    assert all(len(t) == 30 for _, t in eager)
+    eng = art.engine(device="cuda", **kw)
+    assert stream(eng) == eager
+    n = len(eng._session.graphs)
+    with no_recapture(eng):
+        assert stream(eng) == eager
+    assert len(eng._session.graphs) == n > 0
+
+    s = eng._session
+    assert s.cache.kv.k.shape[2] == 32 and int(s.cache.kv.pos.max()) > 64
+    b, dev = s.sched.n_slots, eng.device
+    tiers_t = torch.arange(b, device=dev, dtype=torch.int32) % 3
+    ones = torch.ones_like(tiers_t)
+    cur = torch.randint(0, 256, (b, 1), device=dev, dtype=torch.int32)
+    toks = torch.randint(0, 256, (1, s.prefill_len), device=dev, dtype=torch.int32)
+    lens = torch.full((1,), s.prefill_len, dtype=torch.int32, device=dev)
+    fns = {
+        "decode": lambda c: model.decode(eng.params, c, {
+            "tokens": cur, "active": ones, "tiers": tiers_t, "demand": 0})[0],
+        "prefill": lambda c: model.prefill(eng.params, s.zero_slot_cache, toks, lens,
+                                           tiers_t[1:2], 1)[1],
     }
     for name, fn in fns.items():
         caches = [type(s.cache)(kv=type(s.cache.kv)(*(t.clone() for t in s.cache.kv)))

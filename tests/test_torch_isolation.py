@@ -1,12 +1,13 @@
 """The port stands alone: no JAX and nothing of the JAX package.
 
 * An AST scan finds no import of ``jax`` or ``repro`` in any file under
-  ``src/repro_torch/`` or in ``chip_smoke.py``.
+  ``src/repro_torch/``, ``examples/torch_*.py`` or ``chip_smoke.py``.
 * ``import repro_torch.api`` succeeds in a fresh interpreter where
   ``import jax`` is made to fail.
 * An entry point called without ``device`` on a machine without CUDA
-  raises instead of running on the CPU (``compress``, the engine, the
-  ``Trainer`` and the training launcher); a kernel wrapper runs its plain
+  raises instead of running on the CPU (``compress``, the engine,
+  ``EdgeArtifact.tree``, ``unpack_pytree_wire``, the ``Trainer`` and the
+  training launcher); a kernel wrapper runs its plain
   version only for CPU tensors and refuses any other device.
 """
 import ast
@@ -21,7 +22,8 @@ torch = pytest.importorskip("torch")
 from torch_port_scope import port_modules
 
 ROOT = Path(__file__).resolve().parents[1]
-PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+PORT_FILES = (sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
+              + sorted((ROOT / "examples").glob("torch_*.py")) + [ROOT / "chip_smoke.py"])
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -54,7 +56,8 @@ def test_port_file_list_is_complete():
     assert {"api.py", "engine.py", "store.py", "qsq.py", "chip_smoke.py", "trainer.py",
             "manager.py", "pipeline.py", "compression.py", "adamw.py", "cnn.py", "csd.py",
             "energy.py", "pytree.py", "packed.py", "graphs.py", "retrace.py",
-            "phi4_mini_3_8b.py", "qwen3_14b.py", "deepseek_7b.py", "qwen3_moe_30b_a3b.py"} <= names
+            "phi4_mini_3_8b.py", "qwen3_14b.py", "deepseek_7b.py", "qwen3_moe_30b_a3b.py",
+            "mixtral_8x22b.py", "torch_serve_lm.py", "torch_train_lm.py"} <= names
     assert ROOT / "src" / "repro_torch" / "launch" / "train.py" in PORT_FILES
     assert ROOT / "src" / "repro_torch" / "analysis" / "retrace.py" in PORT_FILES
     assert len(PORT_FILES) > 20
@@ -76,7 +79,7 @@ def test_port_imports_with_jax_blocked():
         "import repro_torch.models.cnn, repro_torch.core.csd, repro_torch.quant.packed\n"
         "import repro_torch.train.cnn, repro_torch.serve.graphs, repro_torch.analysis\n"
         "import repro_torch.configs.phi4_mini_3_8b, repro_torch.configs.qwen3_14b\n"
-        "import repro_torch.configs.deepseek_7b\n"
+        "import repro_torch.configs.deepseek_7b, repro_torch.configs.mixtral_8x22b\n"
         "assert not [m for m in sys.modules if sys.modules[m] is not None\n"
         "            and (m in ('jax', 'repro') or m.startswith(('jax.', 'repro.')))]\n"
         "print('ok')\n"
@@ -104,6 +107,14 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
     art = api.compress(model, params, device="cpu")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         art.engine(quality="hi", batch_slots=1)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        art.tree()
+    assert art.tree(device="cpu")
+    from repro_torch.quant import pytree
+
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        pytree.unpack_pytree_wire(art.wire)
+    assert pytree.unpack_pytree_wire(art.wire, device="cpu").tree
     from repro_torch.launch import train as launch_train
     from repro_torch.train.trainer import Trainer, TrainerConfig
 

@@ -83,6 +83,15 @@ def test_dequant_bit_exact_vs_jax(plane_major, sign_mag):
             tw = tref.qsq_dequant_ref(_t(planes), _t(scales), g, sign_mag=sign_mag,
                                       plane_major=plane_major, n_planes=n_planes)
             np.testing.assert_array_equal(tw.numpy(), jw)
+            # every code mask ANDed on first (the masked dequant)
+            for code_mask in range(8):
+                jw = np.asarray(jref.qsq_dequant_masked_ref(
+                    jnp.asarray(planes), jnp.asarray(scales), g, code_mask,
+                    sign_mag=sign_mag, plane_major=plane_major, n_planes=n_planes))
+                tw = tref.qsq_dequant_masked_ref(_t(planes), _t(scales), g, code_mask,
+                                                 sign_mag=sign_mag, plane_major=plane_major,
+                                                 n_planes=n_planes)
+                np.testing.assert_array_equal(tw.numpy(), jw)
 
 
 ROUTES = [(3, 64, 48), (8, 128, 200), (16, 96, 32), (20, 64, 72), (64, 128, 40)]

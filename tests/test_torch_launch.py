@@ -3,13 +3,17 @@
 Runs on the smoke config with ``--device cpu`` (the plain PyTorch path):
 a speculative stream (``--wire --stream --speculate lo:4``), packed
 against ``--dense`` serving of one artifact (the same greedy tokens),
-mixed tiers with QualityShed, and the JAX launcher's flag checks; the
-default device is the card, so without CUDA it raises.
+mixed tiers with QualityShed, the windowed mixtral-8x22b smoke config,
+and the JAX launcher's flag checks; the default device is the card, so
+without CUDA it raises.  The port's serving and training examples
+(``examples/torch_serve_lm.py``, ``examples/torch_train_lm.py``) run once
+each at their smoke size with ``--device cpu``.
 """
 import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -68,6 +72,43 @@ def test_mixed_tiers_with_slo_runs(capsys):
     out = capsys.readouterr().out
     assert "@lo" in out and "@hi" in out
     assert "tokens / 8 requests" in out
+
+
+def test_windowed_arch_streams(capsys):
+    """mixtral-8x22b's smoke config (window 32): a mixed-tier stream whose
+    prompts and 40 new tokens outgrow the ring."""
+    eng = serve.main(["--arch", "mixtral_8x22b", "--wire", "--stream", "--mixed-tiers",
+                      "--max-new", "40", "--device", "cpu"])
+    out = capsys.readouterr().out
+    assert eng.model.cfg.window == 32 and eng._session.cache.kv.k.shape[2] == 32
+    done = eng.completed_requests
+    assert done and all(len(r.out) == 40 for r in done.values())
+    assert out.count(" done ") == len(done)
+
+
+def test_examples_run_on_the_cpu(capsys):
+    """``examples/torch_serve_lm.py`` (mixtral-8x22b's smoke config, every
+    tier) and ``examples/torch_train_lm.py`` (3 steps, a checkpoint, the
+    wire export) at ``--device cpu``; the example modules leave
+    ``sys.modules`` again (see ``torch_port_scope``)."""
+    sys.path.insert(0, str(ROOT / "examples"))
+    try:
+        import torch_serve_lm
+        import torch_train_lm
+
+        outs = torch_serve_lm.main(["--arch", "mixtral_8x22b", "--max-new", "4",
+                                    "--device", "cpu"])
+        tr = torch_train_lm.main(["--steps", "3", "--batch", "2", "--seq", "16", "--device",
+                                  "cpu"])
+    finally:
+        sys.path.remove(str(ROOT / "examples"))
+        for name in ("torch_serve_lm", "torch_train_lm"):
+            sys.modules.pop(name, None)
+    assert set(outs) == {"hi", "mid", "lo"}
+    assert all(len(o) == 3 and all(len(t) == 4 for t in o) for o in outs.values())
+    assert len(tr.metrics_log) == 3 and all(np.isfinite(m["loss"]) for m in tr.metrics_log)
+    out = capsys.readouterr().out
+    assert "channel payload" in out and "wire export" in out
 
 
 @pytest.mark.parametrize("argv", [

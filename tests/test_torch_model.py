@@ -147,28 +147,45 @@ def test_prefill_and_decode_match_jax(served, tiers):
 
 
 def test_windowed_config_raises():
-    cfg = TArch(**{**CFG, "name": "swa"}, window=8, dtype=torch.float32)
-    m = TModel(cfg)
-    params = tinit(m.param_descs(), device="cpu")
-    cache = tinit(m.cache_descs(1, 16), device="cpu")
-    with pytest.raises(NotImplementedError, match="sliding-window"):
-        m.prefill(params, cache, torch.zeros((1, 4), dtype=torch.int32))
+    """A windowed config prefills a ring shorter than its left-padded prompt
+    (the last t tokens at slots ``i % t``) into the JAX package's cache,
+    logits within TOL; the one raise left for a windowed config is
+    ``verify``, which needs a full-length KV cache, as in the JAX package."""
+    cfg = dict(CFG, name="swa")
+    jm = JModel(JArch(**cfg, window=8, dtype=jnp.float32))
+    m = TModel(TArch(**cfg, window=8, dtype=torch.float32))
+    params = numpy_params(5)
+    tp = params_from_numpy(params, device="cpu")
+    jp = jax.tree_util.tree_map(jnp.asarray, params)
+    toks = np.random.default_rng(5).integers(0, CFG["vocab"], (2, 12)).astype(np.int32)
+    lens = np.array([12, 7], np.int32)
+    toks[1, :12 - 7] = 0
+    jc, jl = jm.prefill(jp, jinit(jax.random.PRNGKey(0), jm.cache_descs(2, 16)),
+                        jnp.asarray(toks), jnp.asarray(lens))
+    tc, tl = m.prefill(tp, tinit(m.cache_descs(2, 16), device="cpu"), torch.from_numpy(toks),
+                       torch.from_numpy(lens))
+    assert tc.kv.k.shape[2] == 8  # (L, B, T, Kv, hd): the ring holds the window
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **TOL)
+    _assert_cache_close(jc, tc)
+    batch = {"tokens": torch.zeros((2, 2), dtype=torch.int32),
+             "start": torch.full((2,), 12, dtype=torch.int32),
+             "wlen": torch.full((2,), 2, dtype=torch.int32),
+             "spec": torch.ones((2,), dtype=torch.int32)}
+    with pytest.raises(ValueError, match="full-length KV cache"):
+        m.verify(tp, tc, batch)
 
 
 @pytest.mark.parametrize("family", ["moe", "ssm", "vlm"])
 def test_other_families_name_their_roadmap_item(family):
-    """Each unported part names its ROADMAP item: for MoE (ported) the part
-    still missing, the sliding window, which a windowed MoE config reaches
-    at prefill."""
-    if family == "moe":
-        from repro_torch.configs.base import MoEConfig
+    """Each unported family names its ROADMAP item; for ``moe`` (ported,
+    its window too) the case is a hybrid stack that carries MoE layers,
+    jamba's layout, which is still unported."""
+    from repro_torch.configs.base import HybridConfig, MoEConfig
 
-        m = TModel(TArch(**{**CFG, "family": "moe"}, moe=MoEConfig(n_experts=4, top_k=2),
-                         window=8, dtype=torch.float32))
-        params = tinit(m.param_descs(), device="cpu")
-        cache = tinit(m.cache_descs(1, 16), device="cpu")
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
-            m.prefill(params, cache, torch.zeros((1, 4), dtype=torch.int32))
-        return
+    extra = {}
+    if family == "moe":
+        family = "hybrid"
+        extra = dict(moe=MoEConfig(n_experts=4, top_k=2), hybrid=HybridConfig(),
+                     ssm_state=16)
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
-        TModel(TArch(**{**CFG, "family": family}, dtype=torch.float32))
+        TModel(TArch(**{**CFG, "family": family}, **extra, dtype=torch.float32))

@@ -21,14 +21,12 @@ capacity (the live lane's output changes), then holds the masked run
 against the JAX package: the reference's own dead-lane test fails its
 non-vacuity guard (ROADMAP Queue 3), so it is no oracle here.
 
-The JAX config module is imported only inside :func:`jax_config_scope`,
+The JAX config module is imported only inside ``jax_config_scope``,
 and the port only inside ``port_modules``: hypothesis draws example
 constants from every loaded local module, so a module left loaded here
 would change the JAX property tests' examples in this xdist worker.
 """
-import contextlib
 import dataclasses
-import sys
 
 import numpy as np
 import pytest
@@ -37,7 +35,7 @@ torch = pytest.importorskip("torch")
 
 import jax
 import jax.numpy as jnp
-from torch_port_scope import port_modules
+from torch_port_scope import jax_config_scope, port_modules
 
 from repro import api as japi
 from repro.configs.base import get_arch as jget_arch
@@ -53,19 +51,6 @@ ARCH = "qwen3_moe_30b_a3b"
 TOL = dict(atol=1e-4, rtol=1e-4)
 MOE_TOL = dict(atol=1e-5, rtol=1e-5)
 ENGINE = dict(quality="mid", batch_slots=3, max_prompt=8, max_len=24)
-
-
-@contextlib.contextmanager
-def jax_config_scope():
-    """Drop every ``repro.configs`` module first imported inside the block
-    from ``sys.modules`` on exit (see the module docstring)."""
-    before = set(sys.modules)
-    try:
-        yield
-    finally:
-        for name in [m for m in sys.modules
-                     if m not in before and m.startswith("repro.configs.")]:
-            del sys.modules[name]
 
 
 @pytest.fixture(scope="module", autouse=True)

@@ -141,13 +141,16 @@ DENSE = {  # the packed (K, N) of every dense config the port serves: wq, wk/wv,
     "phi4_mini_3_8b": [(3072, 3072), (3072, 1024), (3072, 8192), (8192, 3072), (3072, 200064)],
     "qwen3_14b": [(5120, 5120), (5120, 1024), (5120, 17408), (17408, 5120), (5120, 151936)],
     "deepseek_7b": [(4096, 4096), (4096, 11008), (11008, 4096), (4096, 102400)],
+    # mixtral-8x22b's packed leaves: wq, wk/wv, head (its experts serve dense)
+    "mixtral_8x22b": [(6144, 6144), (6144, 1024), (6144, 32768)],
 }
 
 
 @pytest.mark.parametrize("arch", sorted(DENSE))
 def test_dense_config_shapes_take_tensor_cores(arch):
-    """Every packed shape of the four dense configs, G 16 and 64, M from a
-    single decode row to a static prefill, takes the tensor-core route with
+    """Every packed shape of the dense configs and of mixtral-8x22b's
+    attention and head, G 16 and 64, M from a single decode row to a static
+    prefill (mixtral's 4064-row admission too), takes the tensor-core route with
     a plan that fits; up to 64 rows the GEMM splits K as the GEMV does.
     (deepseek-7b's and qwen3-14b's ``wd`` took the FMA route at every M
     before the GEMM could fall back to 16-row tiles.)  The heads of the
@@ -155,7 +158,8 @@ def test_dense_config_shapes_take_tensor_cores(arch):
     for k, n in DENSE[arch]:
         for g in (16, 64):
             gemv = qsq.launch_plan("gemv", 8, k, n, g, torch.bfloat16)
-            for m in (1, 8, 16, 40, 64, 128, 336):
+            # mixtral's admission prefills its 4064-token window at once
+            for m in (1, 8, 16, 40, 64, 128, 336) + ((4064,) if arch == "mixtral_8x22b" else ()):
                 kind = "gemv" if m <= qsq.GEMV_M_MAX else "gemm"
                 p = qsq.launch_plan(kind, m, k, n, g, torch.bfloat16)
                 assert p.route == "mma", (arch, k, n, g, m, p)

@@ -118,7 +118,7 @@ def test_wire_crosses_between_packages_losslessly():
     jpol, tpol = _policies()
     jq = jquant.quantize_pytree(jax.tree_util.tree_map(jnp.asarray, params), jpol)
     tq = tquant.quantize_pytree(tconvert.params_from_numpy(params, device="cpu"), tpol)
-    for src, dst in ((jq, tquant.unpack_pytree_wire(jquant.pack_pytree_wire(jq))),
+    for src, dst in ((jq, tquant.unpack_pytree_wire(jquant.pack_pytree_wire(jq), device="cpu")),
                      (jquant.unpack_pytree_wire(tquant.pack_pytree_wire(tq)), tq)):
         for a, b in _pairs(src.tree, dst.tree):
             np.testing.assert_array_equal(np.asarray(b.levels), np.asarray(a.levels))

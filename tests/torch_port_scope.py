@@ -7,7 +7,8 @@ the JAX package's property tests (test_codec, test_qsq, test_plane_mask,
 ...) draw in that worker.  The ``test_torch_*.py`` files therefore import
 ``repro_torch`` only inside :func:`port_modules` — never while pytest
 collects them — and the scope drops those modules again when the file is
-done.
+done.  :func:`jax_config_scope` does the same for JAX config modules
+that only one port test file loads.
 """
 import contextlib
 import sys
@@ -23,4 +24,17 @@ def port_modules():
     finally:
         for name in [m for m in sys.modules
                      if m not in before and m.split(".")[0] == "repro_torch"]:
+            del sys.modules[name]
+
+
+@contextlib.contextmanager
+def jax_config_scope():
+    """Drop every ``repro.configs`` module first imported inside the block
+    from ``sys.modules`` on exit."""
+    before = set(sys.modules)
+    try:
+        yield
+    finally:
+        for name in [m for m in sys.modules
+                     if m not in before and m.startswith("repro.configs.")]:
             del sys.modules[name]
