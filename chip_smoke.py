@@ -19,7 +19,9 @@ Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``
    == truncated, no bf16 launch on the FMA route, each shape's plan and
    time against ``torch.matmul`` and the byte bound; the same at the three
    packed shapes of qwen3-moe-30b-a3b (2048x4096, 2048x512, 2048x151936)
-   and of mixtral-8x22b (6144x6144, 6144x1024, 6144x32768);
+   and of mixtral-8x22b (6144x6144, 6144x1024, 6144x32768), and at
+   mamba2-1.3b's head (2048x50280, a ragged N), with K1 at M 8 and 2 and K3
+   at M 640 there (the rows of phase 14) within the f32 bound;
 3. the main path at full width: ``api.compress`` of smollm-135m (random
    weights from a seeded ``torch.Generator``), ``save``,
    ``api.load(verify=True)``, ``artifact.engine(quality="mid",
@@ -112,7 +114,24 @@ Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``
    forward's own distance from f64; the smoke config's ring (window 32)
    gives the CPU's tokens on the card
    in a session whose prefill is wider than the ring and one whose decode
-   wraps it.
+   wraps it;
+14. the recurrent families: mamba2-1.3b at its published widths and depth
+   (48 layers, d 2048, vocab 50280; random init, seed 0; bf16) compressed,
+   saved, loaded (verify) and served by single-tier engines at hi / mid /
+   lo through ``generate()``'s static path (8 prompts of 48-64 tokens, a
+   per-token scanned prefill, 32 new tokens): one host sync a generate, the
+   same tokens on a second identical call, K1 (the head) once a position
+   and no other kernel, no plain version, the nonzero plane words served
+   ordered hi > mid > lo; prefill and decode ms a position, tokens/s, the
+   bytes a step moves in W's dense decode and in K1 beside the meter's
+   packed figure, peak device memory; a profiled decode step split
+   into W's dense decode of the mixers' weights, the convs and SSD
+   recurrence, the mixers' matmuls and gated norms, K1 on the head and the
+   rest; then at 4 layers in f32, ``Model.forward`` on 2 x 320 tokens (the
+   head through K3) against 320 ``Model.decode`` steps, within 2e-4 of the
+   largest |logit|, a planted chunk-boundary fault caught; the mamba2 and
+   jamba smoke configs give the CPU's static tokens at every tier on the
+   card, last prefill logits within 1e-4.
 
 Any failed check raises, so the script exits non-zero and prints no
 result.  The second-to-last line is the per-kernel JSON summary and the
@@ -405,6 +424,12 @@ DENSE_SHAPES = {
 MOE_SHAPES = {"qwen3-moe-30b-a3b": [(2048, 4096), (2048, 512), (2048, 151936)]}
 # (K, N) of mixtral-8x22b's packed leaves: wq, wk/wv, head
 MIXTRAL_SHAPES = {"mixtral-8x22b": [(6144, 6144), (6144, 1024), (6144, 32768)]}
+# (K, N) of mamba2-1.3b's kernel-served leaf: the head (the mixers' packed
+# leaves decode to dense through W); N is not a multiple of 16
+MAMBA2_SHAPES = {"mamba2-1.3b": [(2048, 50280)]}
+# (kernel, M) of the head on [14]'s path: K1 at the 8 serving slots (bf16),
+# K1 at the forward-vs-decode check's 2 rows and K3 on its 2 x 320 tokens (f32)
+MAMBA2_CASES = [("qsq_matvec", 8), ("qsq_matvec", 2), ("qsq_matmul", 640)]
 
 
 def dense_shapes(torch, gen, flush, by_arch=None) -> dict:
@@ -829,8 +854,8 @@ def d64_model_params(torch, cfg=None):
     rng = np.random.default_rng(0)
 
     def draw(d):
-        if d.init == "ones":
-            return np.ones(d.shape, np.float32)
+        if d.init in ("ones", "zeros"):
+            return (np.ones if d.init == "ones" else np.zeros)(d.shape, np.float32)
         std = {"fan_in": d.scale / np.sqrt(d.shape[-2]), "normal": d.scale * 0.02,
                "small": d.scale * 0.006}[d.init]
         return (rng.standard_normal(d.shape) * std).astype(np.float32)
@@ -2149,12 +2174,10 @@ MOE_RANGES = {"expert_ffn": "expert bmm", "moe_route": "routing", "moe": "routin
 
 
 @contextlib.contextmanager
-def _profiled_ranges(torch):
-    """Wrap the layer functions of ``MOE_RANGES`` in profiler ranges (the
-    callers look them up in the module at each call)."""
-    from repro_torch.models import layers
-
-    saved = {n: getattr(layers, n) for n in MOE_RANGES}
+def _ranged(torch, module, names):
+    """Wrap ``module``'s functions ``names`` in profiler ranges (callers in
+    the module look them up at each call)."""
+    saved = {n: getattr(module, n) for n in names}
 
     def ranged(name, fn):
         def call(*a, **kw):
@@ -2163,19 +2186,19 @@ def _profiled_ranges(torch):
         return call
 
     for n, fn in saved.items():
-        setattr(layers, n, ranged(n, fn))
+        setattr(module, n, ranged(n, fn))
     try:
         yield
     finally:
         for n, fn in saved.items():
-            setattr(layers, n, fn)
+            setattr(module, n, fn)
 
 
-def _moe_category(evt) -> str:
-    """The innermost ``MOE_RANGES`` range around a profiled op, else rest."""
+def _category(evt, ranges=MOE_RANGES) -> str:
+    """The innermost of ``ranges`` around a profiled op, else rest."""
     while evt is not None:
-        if evt.name in MOE_RANGES:
-            return MOE_RANGES[evt.name]
+        if evt.name in ranges:
+            return ranges[evt.name]
         evt = evt.cpu_parent
     return "rest"
 
@@ -2192,7 +2215,9 @@ def _decode_prof(torch, eng, prompts, steps, ranges=False):
     torch.cuda.synchronize()
     with contextlib.ExitStack() as stack:
         if ranges:
-            stack.enter_context(_profiled_ranges(torch))
+            from repro_torch.models import layers
+
+            stack.enter_context(_ranged(torch, layers, MOE_RANGES))
         prof = stack.enter_context(profile(activities=[ProfilerActivity.CPU,
                                                        ProfilerActivity.CUDA]))
         t0 = time.perf_counter()
@@ -2223,7 +2248,7 @@ def profile_moe_decode(torch, eager, eng, prompts, steps=2, label="qwen3-moe"):
         for k in evt.kernels:
             if not kernel_of(k.name):
                 d = by_name.setdefault(k.name, dict.fromkeys(kinds, 0.0))
-                d[_moe_category(evt)] += k.duration
+                d[_category(evt)] += k.duration
     name_kind = {n: max(d, key=d.get) for n, d in by_name.items()}
 
     def split(kern, exact):
@@ -2793,6 +2818,380 @@ def ring_card_vs_cpu(torch, workdir: Path, cfg) -> None:
     path.unlink()
 
 
+# --------------------------------------------------------------------------
+# Phase 14: the recurrent families (mamba2-1.3b, the Jamba hybrid)
+# --------------------------------------------------------------------------
+SSM_ARCH = "mamba2_1_3b"
+HYBRID_ARCH = "jamba_1_5_large_398b"
+SSM_NEW = 32  # new tokens a prompt
+SSM_FWD_LAYERS = 4  # of 48: the forward-vs-decode check, in f32
+SSM_FWD_LEN = 320  # one full 256-token chunk and a padded partial one
+# |forward - decode| over the largest |logit| (f32).  The cause of the gap:
+# the forward's dual form takes each intra-chunk decay as exp(cs_i - cs_j),
+# a difference of f32 cumulative sums that reach |cs| ~ 1e2 within a chunk,
+# so a decay near the diagonal carries ~1e-5 of relative error, where the
+# decode multiplies exact one-step decays; the projections' sums (K up to
+# 4096) add ~1e-6.  Four layers at ~1e-5 each: bound 2e-4.
+SSM_FWD_TOL = 2e-4
+SSM_RANGES = {"W": "W dense decode", "_conv_ssd_step": "conv + SSD recurrence",
+              "ssm_decode": "projection matmuls + gated norm"}
+
+
+def ssm_prompts(torch, cfg, seed=3):
+    """8 prompts of 48 to 64 tokens."""
+    rng = torch.Generator().manual_seed(seed)
+    return [torch.randint(0, cfg.vocab, (48 + (16 * i) // 7,), generator=rng).tolist()
+            for i in range(8)]
+
+
+def _static_timed(torch, eng, prompts, max_new):
+    """One ``generate()`` with its scanned prefill and its decode loop timed
+    apart (synchronized around each) -> (tokens, prefill ms, decode ms, s)."""
+    box = {}
+
+    def timed(name, fn):
+        def call(*a):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a)
+            torch.cuda.synchronize()
+            box[name] = (time.perf_counter() - t0) * 1e3
+            return out
+        return call
+
+    prefill, loop = eng._prefill, eng._decode_loop
+    eng._prefill, eng._decode_loop = timed("prefill", prefill), timed("decode", loop)
+    try:
+        t0 = time.perf_counter()
+        toks = eng.generate(prompts, max_new=max_new)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        eng._prefill, eng._decode_loop = prefill, loop
+    return toks, box["prefill"], box["decode"], wall
+
+
+def _syncs_of_generate(torch, eng, prompts, max_new) -> tuple[list, int]:
+    """``generate()`` under torch's sync debug mode -> (tokens, host syncs)."""
+    import warnings
+
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            toks = eng.generate(prompts, max_new=max_new)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    return toks, sum("synchroniz" in str(w.message) for w in caught)
+
+
+def ssm_step_traffic(torch, eng) -> dict:
+    """What a decode step of ``eng`` does with its packed weights.
+    ``head``: the bytes K1 reads of the head (the planes its tier keeps and
+    the scales).  ``w``: a floor on the bytes W's dense decode of the other
+    packed leaves moves, the same at every tier: all three planes and the
+    scales read, the dense f32 weight written and read back by the cast, the
+    bf16 weight written and read by the matmul (unpack's own intermediates
+    move more).  ``meter``: the plane bytes the engine's meter charges, what
+    a packed kernel would read.  ``nonzero``: the nonzero plane words the
+    engine serves, counted on the card (a tier's truncation zeroes planes)."""
+    from repro_torch.quant.store import PackedWeight
+    from repro_torch.tree import tree_leaves
+
+    head = eng.params["embed"]["head"]
+    leaves = [x for x in tree_leaves(eng.params, is_leaf=lambda x: isinstance(x, PackedWeight))
+              if isinstance(x, PackedWeight)]
+    w = sum(x.planes.numel() * 4 + x.scales.numel() * 4 + 12 * (x.planes.numel() // 3 * 32)
+            for x in leaves if x is not head)
+    return dict(head=head.planes.numel() * 4 * (3 - head.demand_drop(0)) // 3
+                + head.scales.numel() * 4, w=w, meter=4 * eng._forward_plane_words(0)[0],
+                nonzero=sum(int(torch.count_nonzero(x.planes)) for x in leaves))
+
+
+def ssm_serve(torch, art, cfg, prompts) -> dict:
+    """The recurrent serving path at full width: single-tier engines at hi /
+    mid / lo, each ``generate()`` a per-token scanned prefill and one decode
+    loop.  Gates: one host sync a generate; the same tokens on a second
+    identical call; K1 (the head, M = 8) launched once a position and no
+    other kernel, no plain version; the nonzero plane words served ordered
+    hi > mid > lo.  Prints each step's traffic (:func:`ssm_step_traffic`).
+    Returns the mid run's launches."""
+    from repro_torch.kernels import dispatch, qsq, ref
+
+    maxp = max(len(p) for p in prompts)
+    nonzero, launches = {}, {}
+    for q in ("mid", "hi", "lo"):
+        eng = art.engine(quality=q, batch_slots=8, device="cuda")
+        if eng.per_request_quality or eng.n_packed_leaves <= 0:
+            raise AssertionError(f"mamba2 {q}: per_request_quality "
+                                 f"{eng.per_request_quality}, {eng.n_packed_leaves} packed")
+        traffic = ssm_step_traffic(torch, eng)
+        nonzero[q] = traffic["nonzero"]
+        first = None
+        if q == "mid":
+            eng.generate([[1, 2]], max_new=1)  # the first use of every code path
+            first, syncs = _syncs_of_generate(torch, eng, prompts, SSM_NEW)
+            if syncs != 1:
+                raise AssertionError(f"mamba2 generate synced the host {syncs} times, not once")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        qsq.reset_launches()
+        ref.calls.clear()
+        dispatch.reset_counters()
+        toks, pre_ms, dec_ms, wall = _static_timed(torch, eng, prompts, SSM_NEW)
+        launches[q] = dict(qsq.launches)
+        counters = dict(dispatch.counters)
+        if launches[q] != {"qsq_matvec": maxp + SSM_NEW} or counters.get("gemv") != maxp + SSM_NEW:
+            raise AssertionError(f"mamba2 {q}: launches {launches[q]}, routes {counters}; "
+                                 f"want K1 once for each of {maxp + SSM_NEW} positions")
+        if sum(ref.calls.values()):
+            raise AssertionError(f"plain versions ran on the card: {dict(ref.calls)}")
+        if first is not None and toks != first:
+            raise AssertionError("mamba2: a second identical generate() gave other tokens")
+        if not all(len(t) == SSM_NEW and all(0 <= v < cfg.vocab for v in t) for t in toks):
+            raise AssertionError("mamba2: malformed token lists")
+        say(f"  mamba2-1.3b {q}: generate {wall * 1e3:.1f} ms for 8 x {SSM_NEW} tokens "
+            f"({8 * SSM_NEW / wall:.1f} tokens/s); scanned prefill {pre_ms / maxp:.2f} ms a "
+            f"position ({maxp} positions), decode {dec_ms / SSM_NEW:.2f} ms a position; "
+            f"a step (8 tokens) moves at least {traffic['w']} B in W's dense decode and "
+            f"reads {traffic['head']} B of the head in K1 (a packed kernel would read "
+            f"{traffic['meter']} B of planes: the meter); {nonzero[q]} nonzero plane words "
+            f"served; peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+            f"K1 launches {launches[q]['qsq_matvec']}, routes {counters}, plain versions 0"
+            + ("; the same tokens as a first identical call, which synced the host once"
+               if first is not None else ""))
+        if q == "mid":
+            mid_eng = eng
+    if not nonzero["hi"] > nonzero["mid"] > nonzero["lo"]:
+        raise AssertionError(f"nonzero plane words served not ordered hi > mid > lo: {nonzero}")
+    ssm_profile_step(torch, mid_eng, prompts)
+    return launches["mid"]
+
+
+def ssm_profile_step(torch, eng, prompts, steps=2):
+    """The device time of a mamba2 decode step (8 slots, after the scanned
+    prefill) split into W's dense decode of the mixers' packed weights, the
+    convs and SSD recurrence, the projections' matmuls and gated norms, K1
+    on the head, and the rest; launches a step."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models import ssm
+    from repro_torch.models.base import init_params
+
+    model, params = eng.model, eng.params
+    # a step's work does not depend on the position, so a 4-token prefill
+    # primes the state
+    toks = torch.tensor([p[:4] for p in prompts], dtype=torch.int32)
+    cache = init_params(model.cache_descs(8, 4 + steps + 2), device="cuda")
+    cache, logits = model.prefill(params, cache, toks.cuda())
+    cur = torch.argmax(logits, -1).to(torch.int32)[:, None]
+    logits, cache = model.decode(params, cache, {"tokens": cur})  # warm
+    cur = torch.argmax(logits[:, -1], -1).to(torch.int32)[:, None]
+    torch.cuda.synchronize()
+    with _ranged(torch, ssm, SSM_RANGES), profile(
+            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            logits, cache = model.decode(params, cache, {"tokens": cur})
+            cur = torch.argmax(logits[:, -1], -1).to(torch.int32)[:, None]
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / steps
+    kinds = ("W dense decode", "conv + SSD recurrence", "projection matmuls + gated norm",
+             "K1 head", "rest")
+    # the ranges show up as device annotations spanning their kernels
+    kern = [r for r in device_kernels(prof) if r[0] not in SSM_RANGES]
+    busy = sum(t for _, t, _ in kern)
+    n_launch = sum(n for _, _, n in kern)
+    split = dict.fromkeys(kinds, 0.0)
+    split["K1 head"] = sum(t for key, t, _ in kern if kernel_of(key))
+    for evt in prof.events():  # torch's kernels, by the innermost range of their op
+        if evt.device_type != DeviceType.CPU:
+            continue
+        for k in evt.kernels:
+            if not (kernel_of(k.name) or k.name in SSM_RANGES):
+                split[_category(evt, SSM_RANGES)] += k.duration
+    # what no op claims (the ctypes launches of K1 are counted above)
+    split["rest"] += busy - sum(split.values())
+    parts = ", ".join(f"{k} {split[k] / steps / 1e3:.3f} ms "
+                      f"({100 * split[k] / max(busy, 1e-9):.1f}%)" for k in kinds)
+    say(f"  mamba2-1.3b mid decode step (8 slots, profiled, eager): wall {wall:.2f} ms, device "
+        f"busy {busy / steps / 1e3:.3f} ms ({100 * busy / steps / 1e3 / wall:.1f}% of wall), "
+        f"{n_launch // steps} launches; {parts}")
+    for name, t, n in sorted(kern, key=lambda r: -r[1])[:8]:
+        say(f"    {t / steps / 1e3:7.3f} ms/step  {n // steps:5d} launches/step  {name[:90]}")
+    head = params["embed"]["head"]
+    hb = head.planes.numel() * 4 * (3 - head.demand_drop(0)) // 3 + head.scales.numel() * 4
+    say(f"  K1 on the head {tuple(head.shape)}: {hb / 1e6:.1f} MB of planes and scales a step, "
+        f"bound {hb / HBM_BYTES_PER_S * 1e3:.4f} ms at 3.35 TB/s; measured "
+        f"{split['K1 head'] / steps / 1e3:.4f} ms")
+
+
+def _spread_mixers(torch, params, seed=5):
+    """Conv taps of std 0.3, decay logs and dt biases uniform in [-1, 0.5),
+    in place: at the descriptors' init (taps of std 0.02) the SSD's share
+    of the output is ~1e-3 of the skip path's, too small for the check."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    mixer = params["blocks"]["mixer"]
+    for name in ("conv_x", "conv_B", "conv_C"):
+        t = mixer[name]
+        t.copy_(0.3 * torch.randn(t.shape, generator=gen, device="cuda", dtype=torch.float32))
+    for name in ("a_log", "dt_bias"):
+        t = mixer[name]
+        t.copy_(torch.rand(t.shape, generator=gen, device="cuda") * 1.5 - 1.0)
+
+
+def ssm_forward_vs_decode(torch, full) -> int:
+    """mamba2 at its published widths cut to ``SSM_FWD_LAYERS`` layers, f32,
+    served packed from an artifact: ``Model.forward`` on 2 x 320 tokens (its
+    head through K3 at M = 640) against 320 step-by-step ``Model.decode``
+    calls (K1 at M = 2), within ``SSM_FWD_TOL`` of the largest |logit|; a
+    planted fault (the forward forgets the state at the chunk boundary) must
+    exceed it.  Returns K3's launches in the forward."""
+    from repro_torch import api
+    from repro_torch.kernels import qsq, ref
+    from repro_torch.models import ssm
+    from repro_torch.models.api import Model
+    from repro_torch.models.base import init_params
+
+    cfg = dataclasses.replace(full, n_layers=SSM_FWD_LAYERS, dtype=torch.float32)
+    model = Model(cfg)
+    params = init_params(model.param_descs(), torch.Generator(device="cuda").manual_seed(0),
+                         device="cuda")
+    _spread_mixers(torch, params)
+    tp, _ = api.compress(model, params, device="cuda").serve_params("hi", device="cuda")
+    del params
+    toks = torch.randint(0, cfg.vocab, (2, SSM_FWD_LEN),
+                         generator=torch.Generator().manual_seed(6)).to(torch.int32).cuda()
+    qsq.reset_launches()
+    ref.calls.clear()
+    with torch.no_grad():
+        fwd = model.forward(tp, {"tokens": toks})
+        k3 = qsq.launches.get("qsq_matmul", 0)
+        cache = init_params(model.cache_descs(2, SSM_FWD_LEN), device="cuda")
+        rows = []
+        for t in range(SSM_FWD_LEN):
+            lg, cache = model.decode(tp, cache, {"tokens": toks[:, t:t + 1]})
+            rows.append(lg[:, 0])
+        dec = torch.stack(rows, 1)
+        orig = ssm.ssd_chunked
+
+        def forgetful(x, dt, a, bm, cm, chunk, h0=None):
+            ys = [orig(x[:, i:i + chunk], dt[:, i:i + chunk], a, bm[:, i:i + chunk],
+                       cm[:, i:i + chunk], chunk)[0] for i in range(0, x.shape[1], chunk)]
+            return torch.cat(ys, 1), None
+
+        ssm.ssd_chunked = forgetful
+        try:
+            bad = model.forward(tp, {"tokens": toks})
+        finally:
+            ssm.ssd_chunked = orig
+    if not k3 or sum(ref.calls.values()) or not qsq.launches.get("qsq_matvec"):
+        raise AssertionError(f"forward/decode launches {dict(qsq.launches)} (K3 in the "
+                             f"forward {k3}), plain versions {dict(ref.calls)}")
+    if not bool(torch.isfinite(fwd).all()) or fwd.shape != (2, SSM_FWD_LEN, cfg.vocab):
+        raise AssertionError(f"forward logits malformed: {tuple(fwd.shape)}")
+    scale = float(fwd.abs().max())
+    gap = (fwd - dec).abs().amax(dim=(0, 2)) / scale  # by position
+    fault = float((bad - dec).abs().max()) / scale
+    say(f"  mamba2-1.3b at {SSM_FWD_LAYERS} layers, f32, {SSM_FWD_LEN} tokens x 2: forward (K3, "
+        f"{k3} launches) vs {SSM_FWD_LEN} decode steps (K1): max |diff| / max |logit| "
+        f"{float(gap.max()):.3e} (first chunk {float(gap[:cfg.ssm_chunk].max()):.3e}, from "
+        f"the second on {float(gap[cfg.ssm_chunk:].max()):.3e}; bound {SSM_FWD_TOL:g}, largest "
+        f"|logit| {scale:.3f}); planted fault (state dropped at the chunk boundary) {fault:.3e}")
+    if float(gap.max()) > SSM_FWD_TOL:
+        raise AssertionError(f"mamba2 forward off the decode by {float(gap.max()):.3e} of the "
+                             f"largest |logit| > {SSM_FWD_TOL}")
+    if fault <= 10 * SSM_FWD_TOL:
+        raise AssertionError(f"the planted chunk-boundary fault moves the logits only "
+                             f"{fault:.3e}: the check cannot see it")
+    return k3
+
+
+def recurrent_card_vs_cpu(torch, workdir: Path) -> None:
+    """The mamba2 and jamba smoke configs (f32): one artifact, engines on the
+    card and the CPU at hi / mid / lo, identical static greedy tokens; the
+    scanned prefill's last logits within 1e-4 abs + 1e-4 rel."""
+    from repro_torch import api
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import qsq
+    from repro_torch.models.base import init_params
+
+    for arch in (SSM_ARCH, HYBRID_ARCH):
+        cfg = get_arch(arch, smoke=True)
+        model, params = d64_model_params(torch, cfg)
+        path = api.compress(model, params, device="cpu").save(workdir / f"{arch}.edge.npz")
+        art = api.load(path)
+        gen = torch.Generator().manual_seed(9)
+        prompts = [torch.randint(0, cfg.vocab, (n,), generator=gen).tolist()
+                   for n in (7, 2, 12, 5)]
+        toks = torch.zeros((4, 12), dtype=torch.int32)
+        for i, p in enumerate(prompts):
+            toks[i, 12 - len(p):] = torch.tensor(p)
+        out, last = {}, {}
+        qsq.reset_launches()
+        for dev in ("cpu", "cuda"):
+            out[dev] = [art.engine(quality=q, batch_slots=4, device=dev).generate(
+                prompts, max_new=12) for q in TIER_NAMES]
+            tp, _ = art.serve_params("hi", device=dev)
+            cache = init_params(model.cache_descs(4, 16), device=dev)
+            last[dev] = model.prefill(tp, cache, toks.to(dev))[1].cpu()
+        if out["cpu"] != out["cuda"]:
+            raise AssertionError(f"{cfg.name}: card tokens differ from the CPU's:\n{out}")
+        if not qsq.launches.get("qsq_matvec"):
+            raise AssertionError(f"{cfg.name}: K1 did not launch on the card")
+        diff = (last["cuda"] - last["cpu"]).abs()
+        if not bool((diff <= 1e-4 + 1e-4 * last["cpu"].abs()).all()):
+            raise AssertionError(f"{cfg.name}: prefill logits off the CPU's by "
+                                 f"{float(diff.max()):.3e}")
+        say(f"  {cfg.name}: {sum(len(t) for q in out['cuda'] for t in q)} static greedy tokens "
+            f"identical on card and CPU at hi / mid / lo; last prefill logits max |diff| "
+            f"{float(diff.max()):.3e} (tolerance 1e-4 abs + 1e-4 rel); K1 launches "
+            f"{qsq.launches['qsq_matvec']}")
+        path.unlink()
+
+
+def recurrent_full_width(torch, workdir: Path) -> dict:
+    """mamba2-1.3b at its published widths and depth (random weights from
+    seed 0, bf16): compress, save, load(verify), served at three tiers
+    (:func:`ssm_serve`), a decode step's device split; the forward against
+    the decode at 4 layers; the smoke configs of both recurrent families,
+    card against CPU.  Returns the mid serving run's launches and the
+    forward check's."""
+    import gc
+
+    from repro_torch.configs import get_arch
+
+    gc.collect()  # [13]'s engines
+    torch.cuda.empty_cache()
+    cfg = get_arch(SSM_ARCH)
+    hyb = get_arch(HYBRID_ARCH)
+    e_bytes = 4 * 3 * hyb.moe.n_experts * hyb.d_model * hyb.d_ff * 2  # 4 MoE layers a block
+    say(f"  jamba-1.5-large-398b stays at its smoke config on the card: one 8-layer block "
+        f"holds 4 MoE layers of {hyb.moe.n_experts} dense bf16 experts (3 x {hyb.d_model} x "
+        f"{hyb.d_ff}), {e_bytes / 1e9:.1f} GB before anything else")
+    torch.cuda.reset_peak_memory_stats()
+    art, path, t_save, t_load = compress_saved(torch, workdir, cfg, SSM_ARCH)
+    say(f"  {cfg.name}: {cfg.n_layers} layers, d {cfg.d_model}, vocab {cfg.vocab}, state "
+        f"{cfg.ssm_state}, head dim {cfg.ssm_head_dim}, {str(cfg.dtype)[6:]}; artifact "
+        f"{path.stat().st_size / 2**30:.3f} GiB, compress+save {t_save:.1f} s, load(verify) "
+        f"{t_load:.1f} s; peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    path.unlink()
+    t0 = time.perf_counter()
+    launches = ssm_serve(torch, art, cfg, ssm_prompts(torch, cfg))
+    del art
+    gc.collect()
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    k3 = ssm_forward_vs_decode(torch, cfg)
+    t2 = time.perf_counter()
+    recurrent_card_vs_cpu(torch, workdir)
+    say(f"  [14] serving and profile {t1 - t0:.1f} s, forward vs decode {t2 - t1:.1f} s, smoke "
+        f"configs card vs CPU {time.perf_counter() - t2:.1f} s")
+    return launches, {"qsq_matmul": k3}
+
+
 def main() -> int:
     import torch
 
@@ -2837,6 +3236,10 @@ def main() -> int:
     moe_shapes = dense_shapes(torch, gen, flush, MOE_SHAPES)
     say("[2] K1-K4 at the packed shapes of mixtral-8x22b")
     mix_shapes = dense_shapes(torch, gen, flush, MIXTRAL_SHAPES)
+    say("[2] K1-K4 at the packed shape of mamba2-1.3b; K1 and K3 at [14]'s rows")
+    mamba_shapes = dense_shapes(torch, gen, flush, MAMBA2_SHAPES)
+    n = check_kernels(torch, gen, cases=MAMBA2_CASES, shapes=MAMBA2_SHAPES["mamba2-1.3b"])
+    say(f"  {n} checks at {MAMBA2_CASES} passed: f32 bound at every demand, bf16 and f32 x")
     del flush
 
     workdir = ROOT / "build" / "smoke"
@@ -2884,6 +3287,10 @@ def main() -> int:
     say(f"[13] mixtral-8x22b at its published widths ({MIX_LAYERS} layers) through the "
         f"sliding-window ring, eager and captured; the smoke config's ring, card against CPU")
     mix_launches = mixtral_full_width(torch, workdir)
+    say("[14] the recurrent families: mamba2-1.3b at its published widths and depth through "
+        "the static path at three tiers; the forward against the decode at 4 layers; the "
+        "mamba2 and jamba smoke configs, card against CPU")
+    ssm_launches, ssm_fwd_launches = recurrent_full_width(torch, workdir)
 
     for name, row in rows.items():
         row["launches"] = launches.get(name, 0)
@@ -2897,9 +3304,14 @@ def main() -> int:
         rows[name]["launches_phi4_mini"] = phi4_launches.get(name, 0)
         rows[name]["launches_qwen3_moe"] = moe_launches.get(name, 0)
         rows[name]["launches_mixtral"] = mix_launches.get(name, 0)
+        rows[name]["launches_mamba2"] = ssm_launches.get(name, 0)
+        rows[name]["launches_mamba2_forward"] = ssm_fwd_launches.get(name, 0)
         rows[name].update(mixtral_shapes_ms=mix_shapes[name]["ms"],
                           mixtral_shapes_library_ms=mix_shapes[name]["library_ms"],
-                          mixtral_shapes_bound_ms=mix_shapes[name]["bound_ms"])
+                          mixtral_shapes_bound_ms=mix_shapes[name]["bound_ms"],
+                          mamba2_shapes_ms=mamba_shapes[name]["ms"],
+                          mamba2_shapes_library_ms=mamba_shapes[name]["library_ms"],
+                          mamba2_shapes_bound_ms=mamba_shapes[name]["bound_ms"])
         rows[name].update(dense_shapes_ms=dense[name]["ms"],
                           dense_shapes_library_ms=dense[name]["library_ms"],
                           dense_shapes_bound_ms=dense[name]["bound_ms"],

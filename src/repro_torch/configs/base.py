@@ -1,9 +1,8 @@
 """Architecture configuration schema (the port of ``repro/configs/base.py``).
 
-Only the fields the dense and MoE decoder families read are ported;
-``dtype`` is a ``torch.dtype``.  Artifacts store the JAX package's full
-field set, and ``quant.artifact._arch_from_json`` keeps the fields this
-class knows.
+The field set is the JAX package's; ``dtype`` is a ``torch.dtype``.
+Artifacts store the JAX package's full field set, and
+``quant.artifact._arch_from_json`` keeps the fields this class knows.
 """
 from __future__ import annotations
 
@@ -59,9 +58,14 @@ class ArchConfig:
     def hd(self) -> int:
         return self.head_dim or self.d_model // self.n_heads
 
+    @property
+    def sub_quadratic(self) -> bool:
+        """Can this arch run the long_500k decode shape?"""
+        return self.family in ("ssm", "hybrid") or self.window is not None
+
 
 ARCH_IDS = ["smollm_135m", "phi4_mini_3_8b", "qwen3_14b", "deepseek_7b", "qwen3_moe_30b_a3b",
-            "mixtral_8x22b"]
+            "mixtral_8x22b", "mamba2_1_3b", "jamba_1_5_large_398b"]
 
 
 def canonical(arch_id: str) -> str:

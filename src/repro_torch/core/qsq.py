@@ -10,6 +10,7 @@ caller's device.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Literal
 
 import numpy as np
@@ -99,8 +100,13 @@ class QSQTensor:
                    + scalar_bits * self.scales.numel())
 
 
-def _table(table: np.ndarray, device) -> torch.Tensor:
-    return torch.as_tensor(table, dtype=torch.int8, device=device)
+@functools.lru_cache(maxsize=None)
+def _table(sign_mag: bool, device: str) -> torch.Tensor:
+    """The Table II (or sign-magnitude) level table on ``device``, copied
+    there once: a host copy in every dequantization would sync the host
+    with the card."""
+    return torch.as_tensor(SM_LEVEL_TABLE if sign_mag else LEVEL_TABLE, dtype=torch.int8,
+                           device=device)
 
 
 def levels_to_codes(levels: torch.Tensor) -> torch.Tensor:
@@ -112,7 +118,7 @@ def levels_to_codes(levels: torch.Tensor) -> torch.Tensor:
 
 def codes_to_levels(codes: torch.Tensor) -> torch.Tensor:
     """Table II decode; code 7 -> 0 and stray high bits are dropped."""
-    return _table(LEVEL_TABLE, codes.device)[codes.to(torch.int64) & 0x7]
+    return _table(False, str(codes.device))[codes.to(torch.int64) & 0x7]
 
 
 def levels_to_smcodes(levels: torch.Tensor) -> torch.Tensor:
@@ -124,7 +130,7 @@ def levels_to_smcodes(levels: torch.Tensor) -> torch.Tensor:
 
 def smcodes_to_levels(codes: torch.Tensor) -> torch.Tensor:
     """Inverse of :func:`levels_to_smcodes`; -0 (code 4) decodes to 0."""
-    return _table(SM_LEVEL_TABLE, codes.device)[codes.to(torch.int64) & 0x7]
+    return _table(True, str(codes.device))[codes.to(torch.int64) & 0x7]
 
 
 def _nearest_levels(wg, alpha_b, max_level):

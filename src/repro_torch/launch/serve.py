@@ -14,6 +14,11 @@ and served through the facade (``repro_torch.api``): matmul weights stay
 truncation, never a re-quantization), and ``--dense`` decodes the whole
 tree at load instead, for comparison.
 
+The recurrent archs (``mamba2_1_3b``, ``jamba_1_5_large_398b``) serve one
+tier per engine through ``generate()``'s static path (a per-token scanned
+prefill, then one decode loop); ``--stream``, ``--mixed-tiers`` and
+``--speculate`` refuse them, as the JAX launcher does.
+
 ``--stream`` drives the continuous-batching scheduler instead of one
 ``generate()``: synthetic prompts arrive every ``--arrival-every`` engine
 steps, join the running decode, and print as each request finishes with
@@ -159,11 +164,14 @@ def main(argv=None):
         tiers = None
         if args.mixed_tiers:
             if not engine.per_request_quality:
-                ap.error("this artifact/config cannot serve per-request tiers")
+                ap.error("this artifact/config cannot serve per-request tiers (needs a "
+                         "greedy attention family AND an artifact with a sensitivity "
+                         "ranking — rebuild a bare wire with repro_torch.api.compress)")
             names = engine.tier_names
             tiers = [names[i % len(names)] for i in range(len(prompts))]
         if speculate is not None and not engine.per_request_quality:
-            ap.error("--speculate needs per-request quality serving")
+            ap.error("--speculate needs per-request quality serving (a greedy attention "
+                     "family and an artifact with a sensitivity ranking)")
         _serve_stream(engine, prompts, args.max_new, args.arrival_every, tiers=tiers,
                       deadline=args.deadline, speculate=speculate)
         return engine

@@ -1,7 +1,12 @@
-"""Uniform model API (the port of ``repro/models/api.py``), dense and MoE
-families.
+"""Uniform model API (the port of ``repro/models/api.py``): the dense and MoE
+decoders, the Mamba2 LM (``ssm``) and the Jamba hybrid (``hybrid``).
 
-Other families raise ``NotImplementedError`` naming their ROADMAP item.
+Attention families prime their caches with one fused prefill and serve on
+the continuous scheduler; the recurrent ones scan their prompts token by
+token, serve one tier per engine through ``generate()``'s static path, and
+refuse per-slot masks, tiers, verify and lane admission, as in the JAX
+package.  Other families raise ``NotImplementedError`` naming their
+ROADMAP item.
 """
 from __future__ import annotations
 
@@ -10,14 +15,13 @@ import dataclasses
 import torch
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models import transformer
+from repro_torch.models import hybrid, mamba_lm, transformer
 
-_PORTED = ("dense", "moe")
+_ATTENTION = ("dense", "moe")
+_PORTED = _ATTENTION + ("ssm", "hybrid")
 _NOT_PORTED = {
-    "vlm": "ROADMAP Queue 1, item 10 (the other families)",
-    "ssm": "ROADMAP Queue 1, item 10 (the other families)",
-    "hybrid": "ROADMAP Queue 1, item 10 (the other families)",
-    "encdec": "ROADMAP Queue 1, item 10 (the other families)",
+    "vlm": "ROADMAP Queue 1, item 10b (the cross-attending families)",
+    "encdec": "ROADMAP Queue 1, item 10b (the cross-attending families)",
 }
 
 
@@ -35,29 +39,61 @@ class Model:
                 f"family {f!r} is not ported yet: {_NOT_PORTED[f]}")
 
     def param_descs(self):
+        f = self.cfg.family
+        if f == "ssm":
+            return mamba_lm.mamba_descs(self.cfg)
+        if f == "hybrid":
+            return hybrid.hybrid_descs(self.cfg)
         return transformer.lm_descs(self.cfg)
 
     def loss(self, params, batch):
         """Scalar next-token loss; batch = {tokens (B, S), labels (B, S)}."""
+        f = self.cfg.family
+        if f == "ssm":
+            return mamba_lm.mamba_loss(params, self.cfg, batch)
+        if f == "hybrid":
+            return hybrid.hybrid_loss(params, self.cfg, batch)
         return transformer.lm_loss(params, self.cfg, batch)
 
     def forward(self, params, batch):
         """Logits (B, S, vocab) f32 for batch = {tokens (B, S)}."""
+        f = self.cfg.family
+        if f == "ssm":
+            return mamba_lm.mamba_forward(params, self.cfg, batch["tokens"])[0]
+        if f == "hybrid":
+            return hybrid.hybrid_forward(params, self.cfg, batch["tokens"])[0]
         return transformer.lm_forward(params, self.cfg, batch["tokens"])
 
     def cache_descs(self, batch: int, cache_len: int):
+        f = self.cfg.family
+        if f == "ssm":
+            return mamba_lm.mamba_cache_descs(self.cfg, batch, cache_len)
+        if f == "hybrid":
+            return hybrid.hybrid_cache_descs(self.cfg, batch, cache_len)
         return transformer.lm_cache_descs(self.cfg, batch, cache_len)
 
     def decode(self, params, cache, batch):
-        """One decode step; batch = {tokens (B,1), [active, tiers, demand]}."""
-        return transformer.lm_decode(params, self.cfg, cache, batch["tokens"],
-                                     active=batch.get("active"),
-                                     tiers=batch.get("tiers"),
-                                     demand=batch.get("demand"))
+        """One decode step; batch = {tokens (B,1), [active, tiers, demand]}
+        (the bracketed keys: attention families only)."""
+        f = self.cfg.family
+        tokens = batch["tokens"]
+        active, tiers, demand = batch.get("active"), batch.get("tiers"), batch.get("demand")
+        if f in _ATTENTION:
+            return transformer.lm_decode(params, self.cfg, cache, tokens, active=active,
+                                         tiers=tiers, demand=demand)
+        if active is not None or tiers is not None or demand is not None:
+            raise ValueError(
+                f"per-slot active masks / quality tiers (continuous batching) are only "
+                f"supported by attention families, not {f!r}")
+        if f == "ssm":
+            return mamba_lm.mamba_decode(params, self.cfg, cache, tokens)
+        return hybrid.hybrid_decode(params, self.cfg, cache, tokens)
 
     def prefill(self, params, cache, tokens, lengths=None, tiers=None, demand=None):
         """Prime a decode cache for whole (B, S) left-padded prompts ->
-        (cache, last_logits)."""
+        (cache, last_logits).  Attention families run one full-sequence
+        pass; recurrent ones scan the prompt token by token (``lengths``
+        unused: left pads pass through the recurrent state)."""
         from repro_torch.train.step import make_cache_prefill_step
 
         if lengths is None:
@@ -68,12 +104,26 @@ class Model:
     def verify(self, params, cache, batch):
         """Batched multi-position forward for self-speculative verify: each
         lane's window ``[start, start + wlen)`` scored in one pass at the
-        lane's verify tier -> (logits (B, W, V) f32, cache)."""
+        lane's verify tier -> (logits (B, W, V) f32, cache).  Attention
+        families only."""
+        f = self.cfg.family
+        if f not in _ATTENTION:
+            raise ValueError(f"speculative verify needs an attention family with per-lane "
+                             f"KV isolation, not {f!r}")
         return transformer.lm_verify(params, self.cfg, cache, batch["tokens"], batch["start"],
                                      batch["wlen"], batch["spec"], tiers=batch.get("tiers"),
                                      demand=batch.get("demand"))
 
     def cache_insert_slot(self, live, one, slot: int):
+        """Write a single-slot prefilled cache into lane ``slot`` of a live
+        cache (continuous-batching admission); attention families only."""
+        from repro_torch.train.step import supports_fused_prefill
+
+        if not supports_fused_prefill(self):
+            raise ValueError(
+                f"single-slot cache admission needs an attention family with per-lane KV "
+                f"isolation; family {self.cfg.family!r} (cross_every={self.cfg.cross_every}) "
+                f"is served via the static batch path")
         return transformer.lm_cache_insert_slot(live, one, slot)
 
     def serve_params(self, wire_tree, packed: bool = True, drop_map=None,

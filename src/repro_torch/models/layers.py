@@ -19,7 +19,7 @@ With a sliding window (``window``), the training attention masks keys
 older than the window, and the decode cache is a ring of
 ``min(cache_len, window)`` entries: token i lives at slot ``i % t``.
 
-Not ported yet: cross attention (ROADMAP Queue 1, item 10).
+Not ported yet: cross attention (ROADMAP Queue 1, item 10b).
 """
 from __future__ import annotations
 

@@ -315,9 +315,14 @@ class EdgeArtifact:
                                          drop_map=self.drop_map(quality), device=device)
 
     def _per_request_capable(self, cfg) -> bool:
+        """True when an engine under ``cfg`` can serve per-request tiers:
+        packed continuous greedy serving of an attention family, with a
+        sensitivity ranking (or a tier spec that never drops)."""
+        from repro_torch.train.step import supports_fused_prefill
+
         if not (cfg.packed and cfg.continuous and cfg.temperature == 0):
             return False
-        if self.arch_config is None:
+        if self.arch_config is None or not supports_fused_prefill(self.model()):
             return False
         drops_any = any(t.drop_planes > 0 and t.drop_frac > 0 for t in self.tiers.tiers)
         return bool(self.rank) or not drops_any

@@ -17,11 +17,14 @@ serving tier that accepts the longest agreeing prefix and rolls ``pos``
 back over the rest; the tokens equal plain decode at the serving tier.
 
 ``generate()`` submits and drains on the continuous stream when the
-engine is greedy and ``continuous``; otherwise (``temperature > 0`` or
-``ServeConfig(continuous=False)``) it takes the static two-program path:
-one prefill of every slot, then one decode loop with the next token fed
-back on the device and one host sync at the end.  Sampling draws from a
-``torch.Generator`` seeded from ``seed``.
+engine is greedy and ``continuous`` and the family is an attention one;
+otherwise (``temperature > 0``, ``ServeConfig(continuous=False)``, or a
+recurrent family: ssm, hybrid) it takes the static two-program path: one
+prefill of every slot (a per-token scan for recurrent families), then one
+decode loop with the next token fed back on the device and one host sync
+at the end.  Recurrent families serve one tier per engine and refuse
+``submit``.  Sampling draws from a ``torch.Generator`` seeded from
+``seed``.
 
 The cost clock, deadlines, cancellation, ``QualityShed`` admission,
 ``stream_stats`` and the analytic byte meter follow the JAX engine
@@ -72,6 +75,7 @@ from repro_torch.train.step import (
     make_sample_decode_loop,
     make_verify_step,
     sample_tokens,
+    supports_fused_prefill,
 )
 from repro_torch.tree import tree_leaves
 
@@ -214,7 +218,12 @@ class ServeEngine:
         self._plane_words_cache: dict[int, tuple[int, int]] = {}
 
     def _t(self, a: np.ndarray) -> torch.Tensor:
-        return torch.as_tensor(a).to(self.device)
+        """A host array on the engine's device; to a card through pinned
+        memory without a host sync."""
+        t = torch.as_tensor(a)
+        if self.device.type == "cuda":
+            return t.pin_memory().to(self.device, non_blocking=True)
+        return t.to(self.device)
 
     # -- loading -----------------------------------------------------------
     @classmethod
@@ -277,11 +286,19 @@ class ServeEngine:
         return self
 
     # -- continuous batching ------------------------------------------------
+    def _continuous_capable(self) -> bool:
+        return supports_fused_prefill(self.model)
+
     def _require_continuous(self):
         if self.cfg.temperature > 0:
             raise ValueError("the continuous scheduler is greedy-only; build the engine "
                              "with temperature=0 (generate() still samples via the "
                              "static path)")
+        if not self._continuous_capable():
+            raise ValueError(
+                f"continuous batching needs an attention family with per-lane KV "
+                f"isolation; {self.model.cfg.family!r} (cross_every="
+                f"{self.model.cfg.cross_every}) serves via generate()")
 
     def _ensure_session(self) -> _Session:
         if self._session is None:
@@ -714,10 +731,10 @@ class ServeEngine:
     def generate(self, prompts: Sequence[Sequence[int]], max_new: int = 32,
                  seed: int = 0, qualities=None):
         """Decode a batch of prompts; returns lists of ids.  Greedy
-        continuous engines submit all and drain; ``temperature > 0`` or
-        ``continuous=False`` takes the static path (same seed and prompts,
-        same tokens).  ``qualities`` (continuous path only) gives each
-        prompt its own tier."""
+        continuous engines of attention families submit all and drain;
+        ``temperature > 0``, ``continuous=False`` or a recurrent family takes
+        the static path (same seed and prompts, same tokens).  ``qualities``
+        (continuous path only) gives each prompt its own tier."""
         if len(prompts) == 0:
             return []
         if any(len(p) == 0 for p in prompts):
@@ -732,12 +749,12 @@ class ServeEngine:
             qualities = [qualities] * b
         if qualities is not None and len(qualities) != b:
             raise ValueError(f"{len(qualities)} qualities for {b} prompts")
-        if self.cfg.continuous and self.cfg.temperature == 0:
+        if self.cfg.continuous and self.cfg.temperature == 0 and self._continuous_capable():
             return self._generate_continuous(prompts, max_new, qualities)
         if qualities is not None:
             raise ValueError("per-request qualities need the continuous scheduler path "
-                             "(greedy, ServeConfig(continuous=True)); use set_quality() "
-                             "to dial this engine as a whole")
+                             "(greedy attention family, ServeConfig(continuous=True)); use "
+                             "set_quality() to dial this engine as a whole")
         return self._generate_static(prompts, max_new, seed)
 
     def _generate_continuous(self, prompts, max_new: int, qualities=None):

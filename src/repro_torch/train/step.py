@@ -70,16 +70,41 @@ def make_serve_step(model) -> Callable:
     return serve_step
 
 
+def supports_fused_prefill(model) -> bool:
+    """True if the family primes its cache with ONE full-sequence forward
+    (attention-only stacks).  Recurrent families (ssm/hybrid) and
+    cross-attending ones (vlm/encdec) keep the scanned per-token path."""
+    return model.cfg.family in ("dense", "moe") and not model.cfg.cross_every
+
+
 def make_cache_prefill_step(model) -> Callable:
     """(params, cache, tokens (B, S), lengths (B,), tiers, demand) ->
-    (new cache, last_logits (B, V)): one full-sequence causal pass over the
-    left-padded prompts."""
+    (new cache, last_logits (B, V)).
 
-    def prefill_step(params, cache, tokens, lengths, tiers=None, demand=None):
-        return transformer.lm_prefill(params, model.cfg, cache, tokens, lengths,
-                                      tiers=tiers, demand=demand)
+    Attention families run one full-sequence causal pass over the
+    left-padded prompts, with the pads masked out of the KV cache.  Other
+    families scan the prompt through ``model.decode`` one position at a
+    time (weights stream once per token) on a copy of ``cache``;
+    ``lengths`` is unused there, as in the JAX package: left pads pass
+    through the recurrent state, which offers no post-hoc pad masking."""
+    if supports_fused_prefill(model):
+        def prefill_step(params, cache, tokens, lengths, tiers=None, demand=None):
+            return transformer.lm_prefill(params, model.cfg, cache, tokens, lengths,
+                                          tiers=tiers, demand=demand)
 
-    return prefill_step
+        return prefill_step
+
+    def scanned_prefill(params, cache, tokens, lengths, tiers=None, demand=None):
+        del lengths  # per-token scan: no pad isolation for recurrent state
+        if tiers is not None or demand is not None:
+            raise ValueError(f"per-slot quality tiers need the fused attention prefill; "
+                             f"family {model.cfg.family!r} serves one tier per engine")
+        cache = tree_map(torch.clone, cache)  # decode writes in place; the input stays
+        for t in range(tokens.shape[1]):
+            logits, cache = model.decode(params, cache, {"tokens": tokens[:, t:t + 1]})
+        return cache, logits[:, -1, :]
+
+    return scanned_prefill
 
 
 def make_admit_step(model) -> Callable:

@@ -177,15 +177,18 @@ def test_windowed_config_raises():
 
 @pytest.mark.parametrize("family", ["moe", "ssm", "vlm"])
 def test_other_families_name_their_roadmap_item(family):
-    """Each unported family names its ROADMAP item; for ``moe`` (ported,
-    its window too) the case is a hybrid stack that carries MoE layers,
-    jamba's layout, which is still unported."""
-    from repro_torch.configs.base import HybridConfig, MoEConfig
+    """Each unported family names its ROADMAP item.  ``moe``, ``ssm`` and
+    the hybrid are ported, so each case is a family that stays unported:
+    ``moe`` a vlm stack that carries MoE layers, ``ssm`` the encoder-decoder,
+    ``vlm`` itself."""
+    from repro_torch.configs.base import MoEConfig
 
     extra = {}
     if family == "moe":
-        family = "hybrid"
-        extra = dict(moe=MoEConfig(n_experts=4, top_k=2), hybrid=HybridConfig(),
-                     ssm_state=16)
+        family = "vlm"
+        extra = dict(moe=MoEConfig(n_experts=4, top_k=2), cross_every=1)
+    elif family == "ssm":
+        family = "encdec"
+        extra = dict(enc_layers=2)
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
         TModel(TArch(**{**CFG, "family": family}, **extra, dtype=torch.float32))

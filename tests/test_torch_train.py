@@ -433,11 +433,11 @@ def test_train_state_convert_roundtrip_and_unported_families(jstate):
                          T["tree"].tree_leaves(back), strict=True):
         np.testing.assert_array_equal(b, a)
     assert ts.err["blocks"]["ln1"].shape == () and ts.err["embed"]["tok"].shape == (256, 64)
-    # the state-space and hybrid families are not ported yet
-    for family, extra in (("ssm", {}), ("hybrid", {"hybrid": T["configs"].HybridConfig()})):
+    # the encoder-decoder and vision families are not ported yet
+    for family, extra in (("encdec", {"enc_layers": 2}), ("vlm", {"cross_every": 1})):
         with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
-            T["api"].Model(T["configs"].ArchConfig(**{**CFG, "family": family}, ssm_state=16,
-                                                   **extra, dtype=torch.float32))
+            T["api"].Model(T["configs"].ArchConfig(**{**CFG, "family": family}, **extra,
+                                                   dtype=torch.float32))
 
 
 def test_prefill_and_serve_steps(jstate, batches):
