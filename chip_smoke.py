@@ -131,7 +131,32 @@ Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``
    head through K3) against 320 ``Model.decode`` steps, within 2e-4 of the
    largest |logit|, a planted chunk-boundary fault caught; the mamba2 and
    jamba smoke configs give the CPU's static tokens at every tier on the
-   card, last prefill logits within 1e-4.
+   card, last prefill logits within 1e-4;
+15. the cross-attending families, with their cross gates (zero at init,
+   which makes a cross block the identity) drawn from a seed:
+   llama-3.2-vision-11b at its published widths cut to 10 layers (two
+   groups of five self layers, each closed by a gated cross block; a
+   reduction of depth only) and whisper-tiny at its published config
+   (random init, seed 0; bf16), compressed, saved, loaded (verify) and
+   served by single-tier engines at hi / mid / lo through ``generate()``'s
+   static path over zero cross K/V, as the engine builds its cache (8
+   prompts of 32-64 tokens and 16 new ones; of 4-16 and 64): one host sync
+   a generate, the same tokens on a second call, K1 69 (17) times a
+   position and no other kernel, no plain version, nonzero plane words hi >
+   mid > lo; ms a position, tokens/s, peak memory, K1's bytes a position
+   beside the meter's; the filled path (``vision_prefill_cross_kv`` on 8 x
+   1024 seeded embeddings, ``encdec_prefill_cross`` on 8 x 1500 frames:
+   K3), then prefill and decode, whose tokens must differ from the zero-K/V
+   run's (a sanity check); a profiled decode step split into K1,
+   self-attention, cross attention, the cross gates and MLP (whisper: its
+   GELU MLP and W's dense decode of it) and the rest; in f32, the VLM cut to
+   5 layers and whisper, ``Model.forward`` against step-by-step decode over
+   the filled cache within 1e-4 of the largest |logit|, the first cross
+   block's K/V zeroed caught above 1e-2; both smoke configs give the CPU's
+   tokens on the card, on the zero-K/V path at every tier and on the
+   filled path, last prefill logits within 1e-4.  Phase 2 also holds K1-K4
+   at the two families' packed shapes (whisper's head N = 51865 is odd)
+   and K3 at the rows that fill cross K/V (M 8192 and 12000).
 
 Any failed check raises, so the script exits non-zero and prints no
 result.  The second-to-last line is the per-kernel JSON summary and the
@@ -489,9 +514,10 @@ def serving_tiers(api):
                             api.QualityTier("lo", 2, 0.75)))
 
 
-def compress_saved(torch, workdir: Path, cfg, name: str, device="cuda"):
-    """``api.compress`` of ``cfg`` (random weights from seed 0), ``save``,
-    ``api.load(verify=True)`` -> (artifact, path, compress+save s, load s)."""
+def compress_saved(torch, workdir: Path, cfg, name: str, device="cuda", prepare=None):
+    """``api.compress`` of ``cfg`` (random weights from seed 0, then
+    ``prepare(params)`` if given), ``save``, ``api.load(verify=True)`` ->
+    (artifact, path, compress+save s, load s)."""
     from repro_torch import api
     from repro_torch.models.api import Model
     from repro_torch.models.base import init_params
@@ -499,6 +525,8 @@ def compress_saved(torch, workdir: Path, cfg, name: str, device="cuda"):
     model = Model(cfg)
     params = init_params(model.param_descs(), torch.Generator(device=device).manual_seed(0),
                          device=device)
+    if prepare is not None:
+        prepare(params)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     art = api.compress(model, params, tiers=serving_tiers(api), device=device)
@@ -2833,8 +2861,9 @@ SSM_FWD_LEN = 320  # one full 256-token chunk and a padded partial one
 # decode multiplies exact one-step decays; the projections' sums (K up to
 # 4096) add ~1e-6.  Four layers at ~1e-5 each: bound 2e-4.
 SSM_FWD_TOL = 2e-4
-SSM_RANGES = {"W": "W dense decode", "_conv_ssd_step": "conv + SSD recurrence",
-              "ssm_decode": "projection matmuls + gated norm"}
+SSM_RANGES = ((("ssm", "W"), "W dense decode"),
+              (("ssm", "_conv_ssd_step"), "conv + SSD recurrence"),
+              (("ssm", "ssm_decode"), "projection matmuls + gated norm"))
 
 
 def ssm_prompts(torch, cfg, seed=3):
@@ -2886,146 +2915,193 @@ def _syncs_of_generate(torch, eng, prompts, max_new) -> tuple[list, int]:
     return toks, sum("synchroniz" in str(w.message) for w in caught)
 
 
-def ssm_step_traffic(torch, eng) -> dict:
-    """What a decode step of ``eng`` does with its packed weights.
-    ``head``: the bytes K1 reads of the head (the planes its tier keeps and
-    the scales).  ``w``: a floor on the bytes W's dense decode of the other
-    packed leaves moves, the same at every tier: all three planes and the
-    scales read, the dense f32 weight written and read back by the cast, the
-    bf16 weight written and read by the matmul (unpack's own intermediates
-    move more).  ``meter``: the plane bytes the engine's meter charges, what
-    a packed kernel would read.  ``nonzero``: the nonzero plane words the
-    engine serves, counted on the card (a tier's truncation zeroes planes)."""
+def k1_leaves(params, family):
+    """The packed leaves a static decode position reads through K1 (mamba2:
+    the head; the VLM: all but the cross blocks' wk/wv; whisper: the
+    decoder's self wq/wk/wv, its cross wq and the head) and those W decodes
+    to dense at every position (mamba2's mixers, whisper's decoder MLP)."""
+    from repro_torch.quant.store import PackedWeight
+    from repro_torch.tree import path_str, tree_leaves_with_path
+
+    k1, w = [], []
+    for path, leaf in tree_leaves_with_path(params, is_leaf=lambda x: isinstance(x, PackedWeight)):
+        if not isinstance(leaf, PackedWeight):
+            continue
+        p = path_str(path)
+        if family == "ssm":
+            (k1 if p == "embed/head" else w).append(leaf)
+        elif family == "vlm":
+            if p not in ("cross_blocks/attn/wk", "cross_blocks/attn/wv"):
+                k1.append(leaf)
+        elif p == "embed/head" or p.startswith(("dec_blocks/self_attn/",
+                                                 "dec_blocks/cross_attn/wq")):
+            k1.append(leaf)
+        elif p.startswith("dec_blocks/mlp/"):
+            w.append(leaf)
+    return k1, w
+
+
+def static_step_traffic(torch, eng) -> dict:
+    """What a decode position does with the packed weights: ``k1``, the bytes
+    K1 reads (the planes the tier keeps and the scales); ``w``, a floor on
+    the bytes W's dense decode of the other leaves (:func:`k1_leaves`) moves,
+    the same at every tier: all three planes and the scales read, the dense
+    f32 weight written and read back by the cast, the bf16 weight written
+    and read by the matmul (unpack's own intermediates move more);
+    ``meter``, the plane bytes the engine's meter charges (every packed
+    leaf: what a packed kernel would read, the encoder's and the cross
+    wk/wv that decode does not read included); ``nonzero``, the nonzero
+    plane words the engine serves, counted on the card (a tier's
+    truncation zeroes planes)."""
     from repro_torch.quant.store import PackedWeight
     from repro_torch.tree import tree_leaves
 
-    head = eng.params["embed"]["head"]
+    k1, w = k1_leaves(eng.params, eng.model.cfg.family)
     leaves = [x for x in tree_leaves(eng.params, is_leaf=lambda x: isinstance(x, PackedWeight))
               if isinstance(x, PackedWeight)]
-    w = sum(x.planes.numel() * 4 + x.scales.numel() * 4 + 12 * (x.planes.numel() // 3 * 32)
-            for x in leaves if x is not head)
-    return dict(head=head.planes.numel() * 4 * (3 - head.demand_drop(0)) // 3
-                + head.scales.numel() * 4, w=w, meter=4 * eng._forward_plane_words(0)[0],
-                nonzero=sum(int(torch.count_nonzero(x.planes)) for x in leaves))
+    return dict(
+        k1=sum(x.planes.numel() * 4 * (3 - x.demand_drop(0)) // 3 + x.scales.numel() * 4
+               for x in k1),
+        w=sum(x.planes.numel() * 4 + x.scales.numel() * 4 + 12 * (x.planes.numel() // 3 * 32)
+              for x in w),
+        meter=4 * eng._forward_plane_words(0)[0],
+        nonzero=sum(int(torch.count_nonzero(x.planes)) for x in leaves))
 
 
-def ssm_serve(torch, art, cfg, prompts) -> dict:
-    """The recurrent serving path at full width: single-tier engines at hi /
-    mid / lo, each ``generate()`` a per-token scanned prefill and one decode
-    loop.  Gates: one host sync a generate; the same tokens on a second
-    identical call; K1 (the head, M = 8) launched once a position and no
-    other kernel, no plain version; the nonzero plane words served ordered
-    hi > mid > lo.  Prints each step's traffic (:func:`ssm_step_traffic`).
-    Returns the mid run's launches."""
+def k1_per_position(cfg) -> int:
+    """K1 launches of one static decode position: mamba2's head; the VLM's 6
+    packed matmuls a self layer, 4 a cross block (wq, the MLP) and the head;
+    whisper's 4 a decoder layer (self wq/wk/wv, cross wq) and the head."""
+    if cfg.family == "ssm":
+        return 1
+    if cfg.family == "vlm":
+        return 6 * cfg.n_layers + 4 * (cfg.n_layers // cfg.cross_every) + 1
+    return 4 * cfg.n_layers + 1
+
+
+def static_serve(torch, art, cfg, prompts, max_new, label,
+                 dev="cuda") -> tuple[dict, object, list]:
+    """A family without the fused prefill at full width: single-tier
+    engines at hi / mid / lo, each ``generate()`` a per-token scanned
+    prefill and one decode loop (the cross families' over zero cross K/V).
+    Gates: one host sync a generate; the
+    same tokens on a second identical call; K1 launched
+    :func:`k1_per_position` times a position and no other kernel, no plain
+    version; the nonzero plane words served ordered hi > mid > lo.  Returns
+    (the mid run's launches, the mid engine, its tokens)."""
     from repro_torch.kernels import dispatch, qsq, ref
 
     maxp = max(len(p) for p in prompts)
+    want = k1_per_position(cfg) * (maxp + max_new)
     nonzero, launches = {}, {}
     for q in ("mid", "hi", "lo"):
-        eng = art.engine(quality=q, batch_slots=8, device="cuda")
+        eng = art.engine(quality=q, batch_slots=8, device=dev)
         if eng.per_request_quality or eng.n_packed_leaves <= 0:
-            raise AssertionError(f"mamba2 {q}: per_request_quality "
+            raise AssertionError(f"{label} {q}: per_request_quality "
                                  f"{eng.per_request_quality}, {eng.n_packed_leaves} packed")
-        traffic = ssm_step_traffic(torch, eng)
+        traffic = static_step_traffic(torch, eng)
         nonzero[q] = traffic["nonzero"]
         first = None
         if q == "mid":
             eng.generate([[1, 2]], max_new=1)  # the first use of every code path
-            first, syncs = _syncs_of_generate(torch, eng, prompts, SSM_NEW)
+            first, syncs = _syncs_of_generate(torch, eng, prompts, max_new)
             if syncs != 1:
-                raise AssertionError(f"mamba2 generate synced the host {syncs} times, not once")
+                raise AssertionError(f"{label} generate synced the host {syncs} times, not once")
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         qsq.reset_launches()
         ref.calls.clear()
         dispatch.reset_counters()
-        toks, pre_ms, dec_ms, wall = _static_timed(torch, eng, prompts, SSM_NEW)
+        toks, pre_ms, dec_ms, wall = _static_timed(torch, eng, prompts, max_new)
         launches[q] = dict(qsq.launches)
         counters = dict(dispatch.counters)
-        if launches[q] != {"qsq_matvec": maxp + SSM_NEW} or counters.get("gemv") != maxp + SSM_NEW:
-            raise AssertionError(f"mamba2 {q}: launches {launches[q]}, routes {counters}; "
-                                 f"want K1 once for each of {maxp + SSM_NEW} positions")
+        if launches[q] != {"qsq_matvec": want} or counters.get("gemv") != want:
+            raise AssertionError(f"{label} {q}: launches {launches[q]}, routes {counters}; "
+                                 f"want K1 {want} times ({k1_per_position(cfg)} a position)")
         if sum(ref.calls.values()):
             raise AssertionError(f"plain versions ran on the card: {dict(ref.calls)}")
         if first is not None and toks != first:
-            raise AssertionError("mamba2: a second identical generate() gave other tokens")
-        if not all(len(t) == SSM_NEW and all(0 <= v < cfg.vocab for v in t) for t in toks):
-            raise AssertionError("mamba2: malformed token lists")
-        say(f"  mamba2-1.3b {q}: generate {wall * 1e3:.1f} ms for 8 x {SSM_NEW} tokens "
-            f"({8 * SSM_NEW / wall:.1f} tokens/s); scanned prefill {pre_ms / maxp:.2f} ms a "
-            f"position ({maxp} positions), decode {dec_ms / SSM_NEW:.2f} ms a position; "
-            f"a step (8 tokens) moves at least {traffic['w']} B in W's dense decode and "
-            f"reads {traffic['head']} B of the head in K1 (a packed kernel would read "
-            f"{traffic['meter']} B of planes: the meter); {nonzero[q]} nonzero plane words "
-            f"served; peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
-            f"K1 launches {launches[q]['qsq_matvec']}, routes {counters}, plain versions 0"
+            raise AssertionError(f"{label}: a second identical generate() gave other tokens")
+        if not all(len(t) == max_new and all(0 <= v < cfg.vocab for v in t) for t in toks):
+            raise AssertionError(f"{label}: malformed token lists")
+        wbytes = (f"; W's dense decode moves at least {traffic['w']} B" if traffic["w"]
+                  else "")
+        say(f"  {label} {q}: generate {wall * 1e3:.1f} ms for 8 x {max_new} tokens "
+            f"({8 * max_new / wall:.1f} tokens/s); scanned prefill {pre_ms / maxp:.2f} ms a "
+            f"position ({maxp} positions), decode {dec_ms / max_new:.2f} ms a position; a "
+            f"position (8 tokens) reads {traffic['k1']} B of planes and scales in K1{wbytes} "
+            f"(the meter charges {traffic['meter']} B of planes); {nonzero[q]} nonzero plane "
+            f"words served; peak device memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; K1 launches "
+            f"{launches[q]['qsq_matvec']}, routes {counters}, plain versions 0"
             + ("; the same tokens as a first identical call, which synced the host once"
                if first is not None else ""))
         if q == "mid":
-            mid_eng = eng
+            mid = (eng, toks)
     if not nonzero["hi"] > nonzero["mid"] > nonzero["lo"]:
-        raise AssertionError(f"nonzero plane words served not ordered hi > mid > lo: {nonzero}")
-    ssm_profile_step(torch, mid_eng, prompts)
-    return launches["mid"]
+        raise AssertionError(f"{label}: nonzero plane words not ordered hi > mid > lo: {nonzero}")
+    return launches["mid"], mid[0], mid[1]
 
 
-def ssm_profile_step(torch, eng, prompts, steps=2):
-    """The device time of a mamba2 decode step (8 slots, after the scanned
-    prefill) split into W's dense decode of the mixers' packed weights, the
-    convs and SSD recurrence, the projections' matmuls and gated norms, K1
-    on the head, and the rest; launches a step."""
+def static_profile_step(torch, eng, prompts, label, ranges, steps=2, dev="cuda"):
+    """The device time of a static decode step (8 slots, after a 4-token
+    prefill; a step's work does not depend on the position) split into K1
+    and ``ranges``, ((module, function), kind) pairs (the innermost around
+    each op), and the rest; launches a step and the busy share."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.models import ssm
+    from repro_torch.models import encdec, layers, ssm, transformer
     from repro_torch.models.base import init_params
 
+    mods = {"layers": layers, "transformer": transformer, "encdec": encdec, "ssm": ssm}
+    names = {fn: kind for (_, fn), kind in ranges}
     model, params = eng.model, eng.params
-    # a step's work does not depend on the position, so a 4-token prefill
-    # primes the state
     toks = torch.tensor([p[:4] for p in prompts], dtype=torch.int32)
-    cache = init_params(model.cache_descs(8, 4 + steps + 2), device="cuda")
-    cache, logits = model.prefill(params, cache, toks.cuda())
+    cache = init_params(model.cache_descs(8, 4 + steps + 2), device=dev)
+    cache, logits = model.prefill(params, cache, toks.to(dev))
     cur = torch.argmax(logits, -1).to(torch.int32)[:, None]
     logits, cache = model.decode(params, cache, {"tokens": cur})  # warm
     cur = torch.argmax(logits[:, -1], -1).to(torch.int32)[:, None]
     torch.cuda.synchronize()
-    with _ranged(torch, ssm, SSM_RANGES), profile(
-            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with contextlib.ExitStack() as stack:
+        for mod in {m for (m, _), _ in ranges}:
+            stack.enter_context(_ranged(torch, mods[mod],
+                                        [fn for (m, fn), _ in ranges if m == mod]))
+        prof = stack.enter_context(profile(activities=[ProfilerActivity.CPU,
+                                                       ProfilerActivity.CUDA]))
         t0 = time.perf_counter()
         for _ in range(steps):
             logits, cache = model.decode(params, cache, {"tokens": cur})
             cur = torch.argmax(logits[:, -1], -1).to(torch.int32)[:, None]
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3 / steps
-    kinds = ("W dense decode", "conv + SSD recurrence", "projection matmuls + gated norm",
-             "K1 head", "rest")
-    # the ranges show up as device annotations spanning their kernels
-    kern = [r for r in device_kernels(prof) if r[0] not in SSM_RANGES]
+    kinds = ["K1"] + [kind for _, kind in ranges] + ["rest"]
+    kern = [r for r in device_kernels(prof) if r[0] not in names]
     busy = sum(t for _, t, _ in kern)
     n_launch = sum(n for _, _, n in kern)
     split = dict.fromkeys(kinds, 0.0)
-    split["K1 head"] = sum(t for key, t, _ in kern if kernel_of(key))
+    split["K1"] = sum(t for key, t, _ in kern if kernel_of(key))
     for evt in prof.events():  # torch's kernels, by the innermost range of their op
         if evt.device_type != DeviceType.CPU:
             continue
         for k in evt.kernels:
-            if not (kernel_of(k.name) or k.name in SSM_RANGES):
-                split[_category(evt, SSM_RANGES)] += k.duration
-    # what no op claims (the ctypes launches of K1 are counted above)
+            if not (kernel_of(k.name) or k.name in names):
+                split[_category(evt, names)] += k.duration
     split["rest"] += busy - sum(split.values())
     parts = ", ".join(f"{k} {split[k] / steps / 1e3:.3f} ms "
                       f"({100 * split[k] / max(busy, 1e-9):.1f}%)" for k in kinds)
-    say(f"  mamba2-1.3b mid decode step (8 slots, profiled, eager): wall {wall:.2f} ms, device "
+    say(f"  {label} mid decode step (8 slots, profiled, eager): wall {wall:.2f} ms, device "
         f"busy {busy / steps / 1e3:.3f} ms ({100 * busy / steps / 1e3 / wall:.1f}% of wall), "
         f"{n_launch // steps} launches; {parts}")
-    for name, t, n in sorted(kern, key=lambda r: -r[1])[:8]:
+    for name, t, n in sorted(kern, key=lambda r: -r[1])[:6]:
         say(f"    {t / steps / 1e3:7.3f} ms/step  {n // steps:5d} launches/step  {name[:90]}")
-    head = params["embed"]["head"]
-    hb = head.planes.numel() * 4 * (3 - head.demand_drop(0)) // 3 + head.scales.numel() * 4
-    say(f"  K1 on the head {tuple(head.shape)}: {hb / 1e6:.1f} MB of planes and scales a step, "
-        f"bound {hb / HBM_BYTES_PER_S * 1e3:.4f} ms at 3.35 TB/s; measured "
-        f"{split['K1 head'] / steps / 1e3:.4f} ms")
+    k1, _ = k1_leaves(params, model.cfg.family)
+    kb = sum(x.planes.numel() * 4 * (3 - x.demand_drop(0)) // 3 + x.scales.numel() * 4
+             for x in k1)
+    say(f"  K1 a step: {kb / 1e6:.1f} MB of planes and scales, bound "
+        f"{kb / HBM_BYTES_PER_S * 1e3:.4f} ms at 3.35 TB/s; measured "
+        f"{split['K1'] / steps / 1e3:.4f} ms")
 
 
 def _spread_mixers(torch, params, seed=5):
@@ -3109,53 +3185,10 @@ def ssm_forward_vs_decode(torch, full) -> int:
     return k3
 
 
-def recurrent_card_vs_cpu(torch, workdir: Path) -> None:
-    """The mamba2 and jamba smoke configs (f32): one artifact, engines on the
-    card and the CPU at hi / mid / lo, identical static greedy tokens; the
-    scanned prefill's last logits within 1e-4 abs + 1e-4 rel."""
-    from repro_torch import api
-    from repro_torch.configs import get_arch
-    from repro_torch.kernels import qsq
-    from repro_torch.models.base import init_params
-
-    for arch in (SSM_ARCH, HYBRID_ARCH):
-        cfg = get_arch(arch, smoke=True)
-        model, params = d64_model_params(torch, cfg)
-        path = api.compress(model, params, device="cpu").save(workdir / f"{arch}.edge.npz")
-        art = api.load(path)
-        gen = torch.Generator().manual_seed(9)
-        prompts = [torch.randint(0, cfg.vocab, (n,), generator=gen).tolist()
-                   for n in (7, 2, 12, 5)]
-        toks = torch.zeros((4, 12), dtype=torch.int32)
-        for i, p in enumerate(prompts):
-            toks[i, 12 - len(p):] = torch.tensor(p)
-        out, last = {}, {}
-        qsq.reset_launches()
-        for dev in ("cpu", "cuda"):
-            out[dev] = [art.engine(quality=q, batch_slots=4, device=dev).generate(
-                prompts, max_new=12) for q in TIER_NAMES]
-            tp, _ = art.serve_params("hi", device=dev)
-            cache = init_params(model.cache_descs(4, 16), device=dev)
-            last[dev] = model.prefill(tp, cache, toks.to(dev))[1].cpu()
-        if out["cpu"] != out["cuda"]:
-            raise AssertionError(f"{cfg.name}: card tokens differ from the CPU's:\n{out}")
-        if not qsq.launches.get("qsq_matvec"):
-            raise AssertionError(f"{cfg.name}: K1 did not launch on the card")
-        diff = (last["cuda"] - last["cpu"]).abs()
-        if not bool((diff <= 1e-4 + 1e-4 * last["cpu"].abs()).all()):
-            raise AssertionError(f"{cfg.name}: prefill logits off the CPU's by "
-                                 f"{float(diff.max()):.3e}")
-        say(f"  {cfg.name}: {sum(len(t) for q in out['cuda'] for t in q)} static greedy tokens "
-            f"identical on card and CPU at hi / mid / lo; last prefill logits max |diff| "
-            f"{float(diff.max()):.3e} (tolerance 1e-4 abs + 1e-4 rel); K1 launches "
-            f"{qsq.launches['qsq_matvec']}")
-        path.unlink()
-
-
 def recurrent_full_width(torch, workdir: Path) -> dict:
     """mamba2-1.3b at its published widths and depth (random weights from
     seed 0, bf16): compress, save, load(verify), served at three tiers
-    (:func:`ssm_serve`), a decode step's device split; the forward against
+    (:func:`static_serve`), a decode step's device split; the forward against
     the decode at 4 layers; the smoke configs of both recurrent families,
     card against CPU.  Returns the mid serving run's launches and the
     forward check's."""
@@ -3179,17 +3212,391 @@ def recurrent_full_width(torch, workdir: Path) -> dict:
         f"{t_load:.1f} s; peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     path.unlink()
     t0 = time.perf_counter()
-    launches = ssm_serve(torch, art, cfg, ssm_prompts(torch, cfg))
-    del art
+    prompts = ssm_prompts(torch, cfg)
+    launches, eng, _ = static_serve(torch, art, cfg, prompts, SSM_NEW, cfg.name)
+    static_profile_step(torch, eng, prompts, cfg.name, SSM_RANGES)
+    del art, eng
     gc.collect()
     torch.cuda.empty_cache()
     t1 = time.perf_counter()
     k3 = ssm_forward_vs_decode(torch, cfg)
     t2 = time.perf_counter()
-    recurrent_card_vs_cpu(torch, workdir)
+    static_card_vs_cpu(torch, workdir, (SSM_ARCH, HYBRID_ARCH))
     say(f"  [14] serving and profile {t1 - t0:.1f} s, forward vs decode {t2 - t1:.1f} s, smoke "
         f"configs card vs CPU {time.perf_counter() - t2:.1f} s")
     return launches, {"qsq_matmul": k3}
+
+
+# --------------------------------------------------------------------------
+# Phase 15: the cross-attending families (llama-3.2-vision-11b, whisper-tiny)
+# --------------------------------------------------------------------------
+VLM_ARCH = "llama_3_2_vision_11b"
+WHISPER_ARCH = "whisper_tiny"
+VLM_LAYERS = 10  # of 40: two groups of 5 self layers, each closed by its cross block
+VLM_FWD_LAYERS = 5  # the forward-vs-decode check, f32: one group and its cross block
+VLM_NEW, WHISPER_NEW = 16, 64  # new tokens a prompt
+CROSS_FWD_LEN = 64  # teacher-forced tokens of the forward-vs-decode check
+# |forward - decode| over the largest |logit| in f64 (the logits end f32); a
+# planted fault (the first cross block's K/V zeroed) must exceed CROSS_FAULT.
+# In f32 the two differ by ~1e-2 at random weights (cross_forward_vs_decode)
+CROSS_FWD_TOL, CROSS_FAULT = 1e-6, 1e-2
+# (K, N) of llama-3.2-vision-11b's packed leaves: wq, wk/wv, wg/wu, wd, head
+VISION_SHAPES = {"llama-3.2-vision-11b": [(4096, 4096), (4096, 1024), (4096, 14336),
+                                          (14336, 4096), (4096, 128256)]}
+# (K, N) of whisper-tiny's kernel-served leaves: wq/wk/wv, head (N odd)
+WHISPER_SHAPES = {"whisper-tiny": [(384, 384), (384, 51865)]}
+# (shapes, M) where K3 fills cross K/V: the vision tokens' wk/wv (8 x 1024
+# rows), the encoder's wq/wk/wv and the decoder's cross wk/wv (8 x 1500 rows)
+CROSS_K3 = (([(4096, 1024)], 8 * 1024), ([(384, 384)], 8 * 1500))
+VLM_RANGES = ((("layers", "decode_attention"), "self-attention"),
+              (("layers", "cross_attention"), "cross attention"),
+              (("transformer", "_cross_block_fwd"), "cross gates and MLP"))
+WHISPER_RANGES = ((("layers", "decode_attention"), "self-attention"),
+                  (("layers", "cross_attention"), "cross attention"),
+                  (("encdec", "_gelu_mlp"), "GELU MLP"),
+                  (("layers", "W"), "W dense decode"))
+
+
+def cross_k3(torch, gen, flush) -> dict:
+    """K3 at the rows that fill cross K/V (:data:`CROSS_K3`): within the f32
+    bound at every demand, bf16 and f32 x; cold single calls (bf16 x)
+    against ``torch.matmul`` and the byte bound."""
+    out = {}
+    for shapes, m in CROSS_K3:
+        n = check_kernels(torch, gen, cases=[("qsq_matmul", m)], shapes=shapes)
+        k, nn = shapes[0]
+        b_s, o_s, ms, _, lib_ms = time_one(torch, gen, flush, "qsq_matmul", False, m, k, nn, 0,
+                                           plain_too=False, runs=10)
+        bound = max(b_s, o_s) * 1e3
+        out[m] = dict(ms=ms, library_ms=lib_ms, bound_ms=bound)
+        say(f"  K3 at M={m} K={k} N={nn}: {n} checks passed (f32 bound, every demand, bf16 "
+            f"and f32 x); kernel {ms:.4f} ms, torch.matmul {lib_ms:.4f} ms, bound "
+            f"{bound:.4f} ms ({'bytes' if b_s >= o_s else 'ops'}; {bound / ms:.1%} of bound)")
+    return out
+
+
+def spread_gates(torch, params, seed=5):
+    """The VLM's cross gates, zero at init (tanh 0 = 0 makes a cross block
+    the identity), drawn in place from +-[0.5, 1.5] (|tanh| 0.46-0.91)."""
+    if "cross_blocks" not in params:
+        return
+    cb = params["cross_blocks"]
+    gen = torch.Generator(device=cb["gate"].device).manual_seed(seed)
+    for name in ("gate", "gate_mlp"):
+        t = cb[name]
+        mag = torch.rand(t.shape, generator=gen, device=t.device) + 0.5
+        sign = torch.randint(0, 2, t.shape, generator=gen, device=t.device) * 2 - 1
+        t.copy_(mag * sign)
+
+
+def cross_prompts(torch, cfg, lo, hi, seed=7):
+    """8 prompts of ``lo`` to ``hi`` tokens."""
+    rng = torch.Generator().manual_seed(seed)
+    return [torch.randint(0, cfg.vocab, (lo + ((hi - lo) * i) // 7,), generator=rng).tolist()
+            for i in range(8)]
+
+
+def side_input(torch, cfg, b, dev, seed=8):
+    """The cross path's seeded input: vision embeddings (B, 1024, d) of std
+    0.1, or encoder frames (B, enc_seq, d) of std 1, in ``cfg.dtype``."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    if cfg.family == "vlm":
+        return 0.1 * torch.randn((b, cfg.vision_tokens, cfg.d_model), generator=gen,
+                                 device=dev).to(cfg.dtype)
+    return torch.randn((b, cfg.enc_seq, cfg.d_model), generator=gen, device=dev).to(cfg.dtype)
+
+
+def filled_cache(torch, model, params, side, b, t, dev):
+    """A zero decode cache of (b, t) with the cross K/V of ``side`` filled
+    (``vision_prefill_cross_kv`` / ``encdec_prefill_cross``: K3)."""
+    from repro_torch.models import encdec, transformer
+    from repro_torch.models.base import init_params
+
+    cache = init_params(model.cache_descs(b, t), device=dev)
+    if model.cfg.family == "vlm":
+        return cache._replace(cross_kv=transformer.vision_prefill_cross_kv(params, model.cfg,
+                                                                            side))
+    ck, cv = encdec.encdec_prefill_cross(params, model.cfg, side)
+    return cache._replace(cross_k=ck, cross_v=cv)
+
+
+def cross_filled(torch, eng, prompts, max_new, zero_toks, label, dev="cuda") -> dict:
+    """The filled path on the mid engine: the cross K/V of a seeded side
+    input through K3 (the VLM: 2 x (wk, wv) at M = 8 x 1024; whisper: the
+    encoder's 4 x (wq, wk, wv) and the decoder's 4 x (wk, wv) at M = 8 x
+    1500), then ``Model.prefill`` and a greedy decode loop over that cache.
+    A sanity check only: the tokens must differ from the zero-K/V run's.
+    Returns K3's launches."""
+    from repro_torch.kernels import qsq, ref
+    from repro_torch.train.step import make_decode_loop
+
+    model, params, cfg = eng.model, eng.params, eng.model.cfg
+    maxp = max(len(p) for p in prompts)
+    toks = torch.zeros((8, maxp), dtype=torch.int32)
+    lens = torch.zeros((8,), dtype=torch.int32)
+    for i, p in enumerate(prompts):
+        toks[i, maxp - len(p):] = torch.tensor(p)
+        lens[i] = len(p)
+    side = side_input(torch, cfg, 8, dev)
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        qsq.reset_launches()
+        ref.calls.clear()
+        t0 = time.perf_counter()
+        cache = filled_cache(torch, model, params, side, 8, maxp + max_new + 1, dev)
+        torch.cuda.synchronize()
+        fill_ms = (time.perf_counter() - t0) * 1e3
+        k3 = dict(qsq.launches)
+        cache, logits = model.prefill(params, cache, toks.to(dev), lens.to(dev))
+        first = torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
+        out, _ = make_decode_loop(model)(params, cache, first, max_new)
+        out = out.cpu().numpy()
+    got = [out[:, i].tolist() for i in range(8)]
+    want_k3 = 4 if cfg.family == "vlm" else 3 * cfg.enc_layers + 2 * cfg.n_layers
+    if k3 != {"qsq_matmul": want_k3} or sum(ref.calls.values()):
+        raise AssertionError(f"{label}: filling the cross K/V launched {k3} (want K3 "
+                             f"{want_k3} times), plain versions {dict(ref.calls)}")
+    differ = sum(a != b for a, b in zip(got, zero_toks, strict=True))
+    if not differ:
+        raise AssertionError(f"{label}: filled cross K/V gave the zero-K/V run's tokens")
+    say(f"  {label} mid, filled path (a sanity check, not a parity check): cross K/V of "
+        f"{tuple(side.shape)} filled through K3 in {fill_ms:.1f} ms ({k3['qsq_matmul']} "
+        f"launches at M = {side.shape[0] * side.shape[1]}), then prefill and {max_new} "
+        f"decode steps; {differ} of 8 token lists differ from the zero-K/V run's")
+    return k3
+
+
+@contextlib.contextmanager
+def _one_sinusoid_source(torch, n):
+    """While installed, the encoder-decoder's decode takes its position rows
+    from the forward's numpy table (``layers.sinusoidal_pos_emb``) instead
+    of computing them on the device (``encdec._sin_pos_at``): the two
+    sources differ by an ulp of ``pow`` at some exponents, which the
+    random-weight attention amplifies (:func:`cross_forward_vs_decode`)."""
+    from repro_torch.models import encdec, layers
+
+    orig = encdec._sin_pos_at
+
+    def from_table(pos, d, dtype):
+        table = torch.from_numpy(layers.sinusoidal_pos_emb(n, d)).to(pos.device)
+        return table[pos.long()].to(dtype)
+
+    encdec._sin_pos_at = from_table
+    try:
+        yield
+    finally:
+        encdec._sin_pos_at = orig
+
+
+def _forward_and_decode(torch, model, params, toks, side, dev, fault=False):
+    """``Model.forward`` over ``toks`` (B, n) with the side input, and n
+    ``Model.decode`` steps over a cache with its cross K/V filled; with
+    ``fault`` also the decode over the same cache with the first cross
+    block's K/V zeroed -> (forward, decode, faulted decode or None)."""
+    b, n = toks.shape
+    key = "vision_embeds" if model.cfg.family == "vlm" else "frames"
+    fwd = model.forward(params, {"tokens": toks, key: side})
+    caches = [filled_cache(torch, model, params, side, b, n, dev)]
+    if fault:
+        good = caches[0]
+        zeroed = {f: tuple(torch.cat([t[:1] * 0, t[1:]]) for t in getattr(good, f))
+                  if f == "cross_kv" else torch.cat([getattr(good, f)[:1] * 0,
+                                                      getattr(good, f)[1:]])
+                  for f in good._fields if f != "kv"}
+        caches.append(good._replace(kv=type(good.kv)(*(t.clone() for t in good.kv)), **zeroed))
+    rows = [[] for _ in caches]
+    for t in range(n):
+        for r, c in zip(rows, caches, strict=True):
+            r.append(model.decode(params, c, {"tokens": toks[:, t:t + 1]})[0][:, 0])
+    out = [torch.stack(r, 1) for r in rows]
+    return fwd, out[0], out[1] if fault else None
+
+
+def cross_forward_vs_decode(torch, full, label, layers=None, dev="cuda") -> int:
+    """The family at its published widths (the VLM cut to
+    :data:`VLM_FWD_LAYERS` layers, depth only), cross gates spread, served
+    packed from an f32 artifact: ``Model.forward`` over
+    :data:`CROSS_FWD_LEN` teacher-forced tokens x 2 with a seeded side input
+    against step-by-step ``Model.decode`` over the filled cache.
+    * f64, on the served tier's decoded tree, the softmax and the norms in
+      f64 on both sides (:func:`_f64_reference`), whisper's decode reading
+      the forward's sinusoid table (:func:`_one_sinusoid_source`): within
+      :data:`CROSS_FWD_TOL` of the largest |logit|; the first cross block's
+      K/V zeroed must move the decode past :data:`CROSS_FAULT`.
+    * f32 (printed, not held), the packed tree: the forward (K3) against
+      the decode (K1), beside each one's distance from f64.  At random
+      weights attention is nearly one-hot (the descriptors' fan-in of a
+      (d, H, hd) projection is H, so scores spread over hundreds), and each
+      position amplifies rounding: two f32 orders of one function differ by
+      ~1e-2 of the largest |logit| after 64 positions.
+    Returns K3's launches (forward and fill)."""
+    from repro_torch import api
+    from repro_torch.kernels import qsq, ref
+    from repro_torch.models.api import Model
+    from repro_torch.models.base import init_params
+    from repro_torch.quant.store import dense_tree
+    from repro_torch.tree import tree_map
+
+    if layers is None:
+        layers = VLM_FWD_LAYERS if full.family == "vlm" else full.n_layers
+    cfg = dataclasses.replace(full, n_layers=layers, dtype=torch.float32)
+    model, m64 = Model(cfg), Model(dataclasses.replace(cfg, dtype=torch.float64))
+    params = init_params(model.param_descs(), torch.Generator(device=dev).manual_seed(0),
+                         device=dev)
+    spread_gates(torch, params)
+    tp, _ = api.compress(model, params, device=dev).serve_params("hi", device=dev)
+    del params
+    d64 = tree_map(lambda t: t.double(), dense_tree(tp, like=model.param_descs()))
+    n = CROSS_FWD_LEN
+    toks = torch.randint(0, cfg.vocab, (2, n),
+                         generator=torch.Generator().manual_seed(6)).to(torch.int32).to(dev)
+    side = side_input(torch, cfg, 2, dev, seed=9)
+    qsq.reset_launches()
+    ref.calls.clear()
+    with torch.no_grad():
+        fwd32, dec32, _ = _forward_and_decode(torch, model, tp, toks, side, dev)
+        launches = dict(qsq.launches)
+        with _f64_reference(torch), _one_sinusoid_source(torch, n):
+            fwd64, dec64, bad64 = _forward_and_decode(torch, m64, d64, toks, side.double(), dev,
+                                                      fault=True)
+    del d64
+    k3 = launches.get("qsq_matmul", 0)
+    if not k3 or sum(ref.calls.values()) or not launches.get("qsq_matvec"):
+        raise AssertionError(f"{label} forward/decode launches {launches}, plain versions "
+                             f"{dict(ref.calls)}")
+    if not bool(torch.isfinite(fwd32).all()) or fwd32.shape != (2, n, cfg.vocab):
+        raise AssertionError(f"{label} forward logits malformed: {tuple(fwd32.shape)}")
+    scale = float(fwd64.abs().max())
+
+    def rel(a, b):
+        return float((a.double() - b.double()).abs().max()) / scale
+
+    gap, planted = rel(fwd64, dec64), rel(bad64, dec64)
+    say(f"  {label} at {cfg.n_layers} layers, {n} tokens x 2, largest |logit| {scale:.3f}: "
+        f"f64 forward vs {n} decode steps over the filled cache {gap:.3e} of it (bound "
+        f"{CROSS_FWD_TOL:g}); the first cross block's K/V zeroed {planted:.3e} (must exceed "
+        f"{CROSS_FAULT:g}); f32 on the packed tree, printed: forward (K3) vs decode (K1) "
+        f"{rel(fwd32, dec32):.3e}, the f32 forward's own distance from f64 "
+        f"{rel(fwd32, fwd64):.3e}, the f32 decode's {rel(dec32, dec64):.3e}; launches "
+        f"{launches}")
+    if gap > CROSS_FWD_TOL:
+        raise AssertionError(f"{label} f64 forward off the decode by {gap:.3e} of the largest "
+                             f"|logit| > {CROSS_FWD_TOL}")
+    if planted <= CROSS_FAULT:
+        raise AssertionError(f"{label}: the planted cross K/V fault moves the logits only "
+                             f"{planted:.3e}: the check cannot see it")
+    return k3
+
+
+def static_card_vs_cpu(torch, workdir: Path, archs) -> None:
+    """The smoke configs of ``archs`` (f32, cross gates spread): one
+    artifact, engines on the card and the CPU at hi / mid / lo, identical
+    static greedy tokens (the cross families' over zero cross K/V); for the
+    cross families also, on the hi tree, the filled path (cross K/V of one
+    seeded side input, prefill, 12 decode steps) with identical tokens; the
+    last prefill logits of every path within 1e-4 abs + 1e-4 rel."""
+    from repro_torch import api
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import qsq
+    from repro_torch.models.base import init_params
+    from repro_torch.train.step import make_decode_loop
+
+    for arch in archs:
+        cfg = get_arch(arch, smoke=True)
+        cross = cfg.family in ("vlm", "encdec")
+        model, params = d64_model_params(torch, cfg)
+        spread_gates(torch, params)
+        path = api.compress(model, params, device="cpu").save(workdir / f"{arch}.edge.npz")
+        art = api.load(path)
+        gen = torch.Generator().manual_seed(9)
+        prompts = [torch.randint(0, cfg.vocab, (n,), generator=gen).tolist()
+                   for n in (7, 2, 12, 5)]
+        toks = torch.zeros((4, 12), dtype=torch.int32)
+        for i, p in enumerate(prompts):
+            toks[i, 12 - len(p):] = torch.tensor(p)
+        side = side_input(torch, cfg, 4, "cpu", seed=10) if cross else None
+        out, last, filled = {}, {}, {}
+        qsq.reset_launches()
+        for dev in ("cpu", "cuda"):
+            out[dev] = [art.engine(quality=q, batch_slots=4, device=dev).generate(
+                prompts, max_new=12) for q in TIER_NAMES]
+            tp, _ = art.serve_params("hi", device=dev)
+            with torch.no_grad():
+                cache = init_params(model.cache_descs(4, 26), device=dev)
+                last[dev] = model.prefill(tp, cache, toks.to(dev))[1].cpu()
+                if cross:
+                    cache = filled_cache(torch, model, tp, side.to(dev), 4, 26, dev)
+                    cache, lg = model.prefill(tp, cache, toks.to(dev))
+                    first = torch.argmax(lg, -1).to(torch.int32)[:, None]
+                    filled[dev] = make_decode_loop(model)(tp, cache, first, 12)[0].cpu().tolist()
+                    last[dev] = torch.cat([last[dev], lg.cpu()])
+        if out["cpu"] != out["cuda"] or filled.get("cpu") != filled.get("cuda"):
+            raise AssertionError(f"{cfg.name}: card tokens differ from the CPU's:\n{out}\n"
+                                 f"{filled}")
+        if not qsq.launches.get("qsq_matvec") or (cross and not qsq.launches.get("qsq_matmul")):
+            raise AssertionError(f"{cfg.name}: K1{'/K3' if cross else ''} did not launch on "
+                                 f"the card: {dict(qsq.launches)}")
+        diff = (last["cuda"] - last["cpu"]).abs()
+        if not bool((diff <= 1e-4 + 1e-4 * last["cpu"].abs()).all()):
+            raise AssertionError(f"{cfg.name}: prefill logits off the CPU's by "
+                                 f"{float(diff.max()):.3e}")
+        say(f"  {cfg.name}: {sum(len(t) for q in out['cuda'] for t in q)} static greedy tokens "
+            + ("(zero cross K/V) and 48 filled-path tokens " if cross else "")
+            + f"identical on card and CPU at hi / mid / lo; last prefill logits max |diff| "
+            f"{float(diff.max()):.3e} (tolerance 1e-4 abs + 1e-4 rel); launches "
+            f"{dict(qsq.launches)}")
+        path.unlink()
+
+
+def cross_full_width(torch, workdir: Path) -> dict:
+    """llama-3.2-vision-11b at its published widths cut to
+    :data:`VLM_LAYERS` layers and whisper-tiny at its published config
+    (random weights from seed 0, bf16, cross gates spread): compress, save,
+    load(verify), served at three tiers (:func:`static_serve`), the filled
+    path, a decode step's device split; the forward against the decode in
+    f32; the smoke configs card against CPU.  Returns, for each family, the
+    launches of the mid generate (K1) and its filled path (K3), and K3's in
+    the forward check."""
+    import gc
+
+    from repro_torch.configs import get_arch
+
+    gc.collect()  # [14]'s engines
+    torch.cuda.empty_cache()
+    out = {}
+    for arch, n_layers, lens, max_new, ranges in (
+            (VLM_ARCH, VLM_LAYERS, (32, 64), VLM_NEW, VLM_RANGES),
+            (WHISPER_ARCH, None, (4, 16), WHISPER_NEW, WHISPER_RANGES)):
+        full = get_arch(arch)
+        cfg = full if n_layers is None else dataclasses.replace(full, n_layers=n_layers)
+        label = cfg.name + (f" ({cfg.n_layers} layers)" if n_layers else "")
+        t0 = time.perf_counter()
+        torch.cuda.reset_peak_memory_stats()
+        art, path, t_save, t_load = compress_saved(
+            torch, workdir, cfg, arch, prepare=lambda p: spread_gates(torch, p))
+        say(f"  {label}: d {cfg.d_model}, {cfg.n_heads} heads ({cfg.n_kv} KV), d_ff "
+            f"{cfg.d_ff}, vocab {cfg.vocab}, {str(cfg.dtype)[6:]}; artifact "
+            f"{path.stat().st_size / 2**30:.3f} GiB, compress+save {t_save:.1f} s, "
+            f"load(verify) {t_load:.1f} s; peak device memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        path.unlink()
+        prompts = cross_prompts(torch, cfg, *lens)
+        launches, eng, toks = static_serve(torch, art, cfg, prompts, max_new, label)
+        launches.update(cross_filled(torch, eng, prompts, max_new, toks, label))
+        static_profile_step(torch, eng, prompts, label, ranges)
+        del art, eng
+        gc.collect()
+        torch.cuda.empty_cache()
+        t1 = time.perf_counter()
+        out[arch] = (launches, cross_forward_vs_decode(torch, full, label))
+        gc.collect()
+        torch.cuda.empty_cache()
+        say(f"  [15] {label}: serving, filled path and profile {t1 - t0:.1f} s, forward vs "
+            f"decode {time.perf_counter() - t1:.1f} s")
+    t0 = time.perf_counter()
+    static_card_vs_cpu(torch, workdir, (VLM_ARCH, WHISPER_ARCH))
+    say(f"  [15] smoke configs card vs CPU {time.perf_counter() - t0:.1f} s")
+    return out
 
 
 def main() -> int:
@@ -3240,6 +3647,12 @@ def main() -> int:
     mamba_shapes = dense_shapes(torch, gen, flush, MAMBA2_SHAPES)
     n = check_kernels(torch, gen, cases=MAMBA2_CASES, shapes=MAMBA2_SHAPES["mamba2-1.3b"])
     say(f"  {n} checks at {MAMBA2_CASES} passed: f32 bound at every demand, bf16 and f32 x")
+    say("[2] K1-K4 at the packed shapes of llama-3.2-vision-11b")
+    vision_shapes = dense_shapes(torch, gen, flush, VISION_SHAPES)
+    say("[2] K1-K4 at the packed shapes of whisper-tiny (the head's N odd)")
+    whisper_shapes = dense_shapes(torch, gen, flush, WHISPER_SHAPES)
+    say("[2] K3 at the rows that fill cross K/V (M 8192 and 12000)")
+    cross_m = cross_k3(torch, gen, flush)
     del flush
 
     workdir = ROOT / "build" / "smoke"
@@ -3291,6 +3704,11 @@ def main() -> int:
         "the static path at three tiers; the forward against the decode at 4 layers; the "
         "mamba2 and jamba smoke configs, card against CPU")
     ssm_launches, ssm_fwd_launches = recurrent_full_width(torch, workdir)
+    say(f"[15] the cross-attending families: llama-3.2-vision-11b at its published widths "
+        f"({VLM_LAYERS} layers) and whisper-tiny at its published config through the static "
+        f"path at three tiers, the cross K/V filled through K3; the forward against the "
+        f"decode in f32; the two smoke configs, card against CPU")
+    cross = cross_full_width(torch, workdir)
 
     for name, row in rows.items():
         row["launches"] = launches.get(name, 0)
@@ -3306,6 +3724,18 @@ def main() -> int:
         rows[name]["launches_mixtral"] = mix_launches.get(name, 0)
         rows[name]["launches_mamba2"] = ssm_launches.get(name, 0)
         rows[name]["launches_mamba2_forward"] = ssm_fwd_launches.get(name, 0)
+        for arch, key in ((VLM_ARCH, "llama_vision"), (WHISPER_ARCH, "whisper")):
+            launches_15, k3_fwd = cross[arch]
+            rows[name][f"launches_{key}"] = launches_15.get(name, 0)
+            rows[name][f"launches_{key}_forward"] = k3_fwd if name == "qsq_matmul" else 0
+        for key, sums in (("vision", vision_shapes), ("whisper", whisper_shapes)):
+            rows[name].update({f"{key}_shapes_ms": sums[name]["ms"],
+                               f"{key}_shapes_library_ms": sums[name]["library_ms"],
+                               f"{key}_shapes_bound_ms": sums[name]["bound_ms"]})
+        if name == "qsq_matmul":
+            for m, r in cross_m.items():
+                rows[name].update({f"m{m}_ms": r["ms"], f"m{m}_library_ms": r["library_ms"],
+                                   f"m{m}_bound_ms": r["bound_ms"]})
         rows[name].update(mixtral_shapes_ms=mix_shapes[name]["ms"],
                           mixtral_shapes_library_ms=mix_shapes[name]["library_ms"],
                           mixtral_shapes_bound_ms=mix_shapes[name]["bound_ms"],

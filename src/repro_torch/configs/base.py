@@ -65,7 +65,8 @@ class ArchConfig:
 
 
 ARCH_IDS = ["smollm_135m", "phi4_mini_3_8b", "qwen3_14b", "deepseek_7b", "qwen3_moe_30b_a3b",
-            "mixtral_8x22b", "mamba2_1_3b", "jamba_1_5_large_398b"]
+            "mixtral_8x22b", "mamba2_1_3b", "jamba_1_5_large_398b", "llama_3_2_vision_11b",
+            "whisper_tiny"]
 
 
 def canonical(arch_id: str) -> str:

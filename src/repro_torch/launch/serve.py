@@ -14,10 +14,12 @@ and served through the facade (``repro_torch.api``): matmul weights stay
 truncation, never a re-quantization), and ``--dense`` decodes the whole
 tree at load instead, for comparison.
 
-The recurrent archs (``mamba2_1_3b``, ``jamba_1_5_large_398b``) serve one
-tier per engine through ``generate()``'s static path (a per-token scanned
-prefill, then one decode loop); ``--stream``, ``--mixed-tiers`` and
-``--speculate`` refuse them, as the JAX launcher does.
+The recurrent archs (``mamba2_1_3b``, ``jamba_1_5_large_398b``) and the
+cross-attending ones (``llama_3_2_vision_11b``, ``whisper_tiny``: no image
+or audio, their cross K/V zero) serve one tier per engine through
+``generate()``'s static path (a per-token scanned prefill, then one
+decode loop); ``--stream``, ``--mixed-tiers`` and ``--speculate`` refuse
+them, as the JAX launcher does.
 
 ``--stream`` drives the continuous-batching scheduler instead of one
 ``generate()``: synthetic prompts arrive every ``--arrival-every`` engine

@@ -1,12 +1,17 @@
 """Uniform model API (the port of ``repro/models/api.py``): the dense and MoE
-decoders, the Mamba2 LM (``ssm``) and the Jamba hybrid (``hybrid``).
+decoders, the VLM (``vlm``, gated cross-attention blocks), the Mamba2 LM
+(``ssm``), the Jamba hybrid (``hybrid``) and the Whisper-style
+encoder-decoder (``encdec``).
 
-Attention families prime their caches with one fused prefill and serve on
-the continuous scheduler; the recurrent ones scan their prompts token by
-token, serve one tier per engine through ``generate()``'s static path, and
-refuse per-slot masks, tiers, verify and lane admission, as in the JAX
-package.  Other families raise ``NotImplementedError`` naming their
-ROADMAP item.
+The dense and MoE families prime their caches with one fused prefill and
+serve on the continuous scheduler.  The others scan their prompts token by
+token and serve one tier per engine through ``generate()``'s static path;
+they refuse lane admission, and all but the VLM refuse per-slot masks and
+tiers and verify, as in the JAX package (the VLM decodes with per-slot
+tiers at the model level, and its verify raises in ``lm_verify``).  The
+cross-attending families read cross K/V from their caches: zeros as the
+engine builds them, or filled ahead of time by
+``transformer.vision_prefill_cross_kv`` / ``encdec.encdec_prefill_cross``.
 """
 from __future__ import annotations
 
@@ -15,14 +20,10 @@ import dataclasses
 import torch
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models import hybrid, mamba_lm, transformer
+from repro_torch.models import encdec, hybrid, mamba_lm, transformer
 
-_ATTENTION = ("dense", "moe")
-_PORTED = _ATTENTION + ("ssm", "hybrid")
-_NOT_PORTED = {
-    "vlm": "ROADMAP Queue 1, item 10b (the cross-attending families)",
-    "encdec": "ROADMAP Queue 1, item 10b (the cross-attending families)",
-}
+_ATTENTION = ("dense", "moe", "vlm")
+_FAMILIES = _ATTENTION + ("ssm", "hybrid", "encdec")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -30,13 +31,9 @@ class Model:
     cfg: ArchConfig
 
     def __post_init__(self):
-        f = self.cfg.family
-        if f not in _NOT_PORTED and f not in _PORTED:
-            raise ValueError(f"unknown family {f} (the paper's CNNs are "
+        if self.cfg.family not in _FAMILIES:
+            raise ValueError(f"unknown family {self.cfg.family} (the paper's CNNs are "
                              f"repro_torch.models.cnn, not a Model)")
-        if f not in _PORTED:
-            raise NotImplementedError(
-                f"family {f!r} is not ported yet: {_NOT_PORTED[f]}")
 
     def param_descs(self):
         f = self.cfg.family
@@ -44,25 +41,35 @@ class Model:
             return mamba_lm.mamba_descs(self.cfg)
         if f == "hybrid":
             return hybrid.hybrid_descs(self.cfg)
+        if f == "encdec":
+            return encdec.encdec_descs(self.cfg)
         return transformer.lm_descs(self.cfg)
 
     def loss(self, params, batch):
-        """Scalar next-token loss; batch = {tokens (B, S), labels (B, S)}."""
+        """Scalar next-token loss; batch = {tokens (B, S), labels (B, S)}, with
+        ``vision_embeds`` (B, T_img, d) for the VLM and ``frames`` (B,
+        enc_seq, d) for the encoder-decoder."""
         f = self.cfg.family
         if f == "ssm":
             return mamba_lm.mamba_loss(params, self.cfg, batch)
         if f == "hybrid":
             return hybrid.hybrid_loss(params, self.cfg, batch)
+        if f == "encdec":
+            return encdec.encdec_loss(params, self.cfg, batch)
         return transformer.lm_loss(params, self.cfg, batch)
 
     def forward(self, params, batch):
-        """Logits (B, S, vocab) f32 for batch = {tokens (B, S)}."""
+        """Logits (B, S, vocab) f32 for batch = {tokens (B, S)}, with
+        ``vision_embeds`` for the VLM and ``frames`` for the encoder-decoder."""
         f = self.cfg.family
         if f == "ssm":
             return mamba_lm.mamba_forward(params, self.cfg, batch["tokens"])[0]
         if f == "hybrid":
             return hybrid.hybrid_forward(params, self.cfg, batch["tokens"])[0]
-        return transformer.lm_forward(params, self.cfg, batch["tokens"])
+        if f == "encdec":
+            return encdec.encdec_forward(params, self.cfg, batch["frames"], batch["tokens"])[0]
+        return transformer.lm_forward(params, self.cfg, batch["tokens"],
+                                      batch.get("vision_embeds"))
 
     def cache_descs(self, batch: int, cache_len: int):
         f = self.cfg.family
@@ -70,11 +77,13 @@ class Model:
             return mamba_lm.mamba_cache_descs(self.cfg, batch, cache_len)
         if f == "hybrid":
             return hybrid.hybrid_cache_descs(self.cfg, batch, cache_len)
+        if f == "encdec":
+            return encdec.encdec_cache_descs(self.cfg, batch, cache_len)
         return transformer.lm_cache_descs(self.cfg, batch, cache_len)
 
     def decode(self, params, cache, batch):
         """One decode step; batch = {tokens (B,1), [active, tiers, demand]}
-        (the bracketed keys: attention families only)."""
+        (the bracketed keys: the dense, MoE and VLM families only)."""
         f = self.cfg.family
         tokens = batch["tokens"]
         active, tiers, demand = batch.get("active"), batch.get("tiers"), batch.get("demand")
@@ -87,7 +96,9 @@ class Model:
                 f"supported by attention families, not {f!r}")
         if f == "ssm":
             return mamba_lm.mamba_decode(params, self.cfg, cache, tokens)
-        return hybrid.hybrid_decode(params, self.cfg, cache, tokens)
+        if f == "hybrid":
+            return hybrid.hybrid_decode(params, self.cfg, cache, tokens)
+        return encdec.encdec_decode(params, self.cfg, cache, tokens)
 
     def prefill(self, params, cache, tokens, lengths=None, tiers=None, demand=None):
         """Prime a decode cache for whole (B, S) left-padded prompts ->
@@ -104,8 +115,9 @@ class Model:
     def verify(self, params, cache, batch):
         """Batched multi-position forward for self-speculative verify: each
         lane's window ``[start, start + wlen)`` scored in one pass at the
-        lane's verify tier -> (logits (B, W, V) f32, cache).  Attention
-        families only."""
+        lane's verify tier -> (logits (B, W, V) f32, cache).  The dense and
+        MoE families only: ``lm_verify`` refuses the VLM's cross blocks and
+        a sliding window."""
         f = self.cfg.family
         if f not in _ATTENTION:
             raise ValueError(f"speculative verify needs an attention family with per-lane "

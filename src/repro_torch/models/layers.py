@@ -19,7 +19,10 @@ With a sliding window (``window``), the training attention masks keys
 older than the window, and the decode cache is a ring of
 ``min(cache_len, window)`` entries: token i lives at slot ``i % t``.
 
-Not ported yet: cross attention (ROADMAP Queue 1, item 10b).
+:func:`cross_attention` attends over K/V filled ahead of time by
+:func:`cross_kv` (the vision tokens or the encoder's frames), with no mask
+and no RoPE; its ``wq`` and the ``wk``/``wv`` of :func:`cross_kv` go
+through :func:`matvec`.
 """
 from __future__ import annotations
 
@@ -92,6 +95,15 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float = 10000.0) -> to
     x1, x2 = x[..., :half], x[..., half:]
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+def sinusoidal_pos_emb(seq: int, d: int) -> np.ndarray:
+    """The (seq, d) f32 sinusoid table, [sin | cos], computed in numpy as the
+    JAX package computes it (bit-equal)."""
+    pos = np.arange(seq, dtype=np.float32)[:, None]
+    i = np.arange(d // 2, dtype=np.float32)[None, :]
+    ang = pos / np.power(10000.0, 2.0 * i / d)
+    return np.concatenate([np.sin(ang), np.cos(ang)], axis=-1)
 
 
 # --------------------------------------------------------------------------
@@ -177,17 +189,22 @@ def kv_cache_descs(b: int, t: int, n_kv: int, head_dim: int, dtype) -> KVCache:
 
 def attention(p: dict, x: torch.Tensor, *, positions: torch.Tensor | None = None,
               theta: float = 10000.0, window: int | None = None,
-              q_chunk: int = 2048) -> torch.Tensor:
-    """Full-sequence (training) causal GQA attention over x (B, S, d).
+              q_chunk: int = 2048, causal: bool = True) -> torch.Tensor:
+    """Full-sequence (training) GQA attention over x (B, S, d), causal
+    unless ``causal=False`` (the encoder's); ``positions=None`` applies no
+    RoPE.
 
     Sequences longer than ``q_chunk`` run in q-chunks, so the score matrix
     never exceeds (chunk x S); with a sliding window shorter than
     ``S - q_chunk`` each chunk also sees only a ``(window + q_chunk)`` kv
-    slice, so windowed attention is sub-quadratic."""
+    slice, so windowed attention is sub-quadratic.  As in the JAX package,
+    only a sequence of at most ``q_chunk`` reads ``causal``: the chunked
+    branches are causal."""
     s = x.shape[1]
     q, k, v = _project_qkv(p, x, positions, theta)
     if s <= q_chunk:
-        m = causal_mask(s, s, window=window, device=x.device)
+        m = (causal_mask(s, s, window=window, device=x.device) if causal
+             else torch.ones((s, s), dtype=torch.bool, device=x.device))
         return _out_proj(p, _gqa_scores_apply(q, k, v, m[None, None, None]), x)
     if s % q_chunk:
         raise ValueError(f"sequence length {s} is not a multiple of q_chunk={q_chunk}")
@@ -340,6 +357,27 @@ def verify_attention(p: dict, x: torch.Tensor, cache: KVCache, *, start: torch.T
                    for j in range(w)], dim=1)
     cache.pos.copy_(torch.where(wlen > 0, start + wlen, cache.pos))
     return y, cache
+
+
+def cross_attention(p: dict, x: torch.Tensor,
+                    kv: tuple[torch.Tensor, torch.Tensor]) -> torch.Tensor:
+    """Attention of x (B, S, d) over precomputed K/V ``kv = (k, v)``, each
+    (B, T, Kv, hd): every query sees every one of the T entries."""
+    q = matvec(p["wq"], x)
+    if "q_norm" in p:
+        q = rmsnorm(q, p["q_norm"])
+    k, v = kv
+    mask = torch.ones((1, 1, 1, 1, k.shape[1]), dtype=torch.bool, device=x.device)
+    return _out_proj(p, _gqa_scores_apply(q, k.to(q.dtype), v.to(q.dtype), mask), x)
+
+
+def cross_kv(p: dict, enc: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The cross K/V of ``enc`` (B, T, d): ((B, T, Kv, hd), (B, T, Kv, hd))."""
+    k = matvec(p["wk"], enc)
+    v = matvec(p["wv"], enc)
+    if "k_norm" in p:
+        k = rmsnorm(k, p["k_norm"])
+    return k, v
 
 
 def per_position(fn, x: torch.Tensor) -> torch.Tensor:

@@ -19,11 +19,13 @@ back over the rest; the tokens equal plain decode at the serving tier.
 ``generate()`` submits and drains on the continuous stream when the
 engine is greedy and ``continuous`` and the family is an attention one;
 otherwise (``temperature > 0``, ``ServeConfig(continuous=False)``, or a
-recurrent family: ssm, hybrid) it takes the static two-program path: one
-prefill of every slot (a per-token scan for recurrent families), then one
+family without the fused prefill: the recurrent ssm and hybrid, the
+cross-attending vlm and encdec) it takes the static two-program path: one
+prefill of every slot (a per-token scan for those families), then one
 decode loop with the next token fed back on the device and one host sync
-at the end.  Recurrent families serve one tier per engine and refuse
-``submit``.  Sampling draws from a ``torch.Generator`` seeded from
+at the end.  Those families serve one tier per engine and refuse
+``submit``; the cross-attending ones read zero cross K/V, as the JAX
+engine builds its cache.  Sampling draws from a ``torch.Generator`` seeded from
 ``seed``.
 
 The cost clock, deadlines, cancellation, ``QualityShed`` admission,
@@ -732,7 +734,7 @@ class ServeEngine:
                  seed: int = 0, qualities=None):
         """Decode a batch of prompts; returns lists of ids.  Greedy
         continuous engines of attention families submit all and drain;
-        ``temperature > 0``, ``continuous=False`` or a recurrent family takes
+        ``temperature > 0``, ``continuous=False`` or a scanned-prefill family takes
         the static path (same seed and prompts, same tokens).  ``qualities``
         (continuous path only) gives each prompt its own tier."""
         if len(prompts) == 0:

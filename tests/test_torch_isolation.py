@@ -58,7 +58,8 @@ def test_port_file_list_is_complete():
             "energy.py", "pytree.py", "packed.py", "graphs.py", "retrace.py",
             "phi4_mini_3_8b.py", "qwen3_14b.py", "deepseek_7b.py", "qwen3_moe_30b_a3b.py",
             "mixtral_8x22b.py", "torch_serve_lm.py", "torch_train_lm.py", "ssm.py",
-            "mamba_lm.py", "hybrid.py", "mamba2_1_3b.py", "jamba_1_5_large_398b.py"} <= names
+            "mamba_lm.py", "hybrid.py", "mamba2_1_3b.py", "jamba_1_5_large_398b.py",
+            "encdec.py", "llama_3_2_vision_11b.py", "whisper_tiny.py"} <= names
     assert ROOT / "src" / "repro_torch" / "launch" / "train.py" in PORT_FILES
     assert ROOT / "src" / "repro_torch" / "analysis" / "retrace.py" in PORT_FILES
     assert len(PORT_FILES) > 20
@@ -82,7 +83,8 @@ def test_port_imports_with_jax_blocked():
         "import repro_torch.configs.phi4_mini_3_8b, repro_torch.configs.qwen3_14b\n"
         "import repro_torch.configs.deepseek_7b, repro_torch.configs.mixtral_8x22b\n"
         "import repro_torch.configs.mamba2_1_3b, repro_torch.configs.jamba_1_5_large_398b\n"
-        "import repro_torch.models.hybrid\n"
+        "import repro_torch.models.hybrid, repro_torch.models.encdec\n"
+        "import repro_torch.configs.llama_3_2_vision_11b, repro_torch.configs.whisper_tiny\n"
         "assert not [m for m in sys.modules if sys.modules[m] is not None\n"
         "            and (m in ('jax', 'repro') or m.startswith(('jax.', 'repro.')))]\n"
         "print('ok')\n"

@@ -177,18 +177,44 @@ def test_windowed_config_raises():
 
 @pytest.mark.parametrize("family", ["moe", "ssm", "vlm"])
 def test_other_families_name_their_roadmap_item(family):
-    """Each unported family names its ROADMAP item.  ``moe``, ``ssm`` and
-    the hybrid are ported, so each case is a family that stays unported:
-    ``moe`` a vlm stack that carries MoE layers, ``ssm`` the encoder-decoder,
-    ``vlm`` itself."""
+    """The families that once named their ROADMAP item now construct, and
+    their forward equals the JAX package's at a tiny config (atol = rtol =
+    1e-4, weights drawn with numpy, the cross gates nonzero): ``moe`` is a
+    vlm stack that carries MoE layers, ``ssm`` the encoder-decoder, ``vlm``
+    the vision LM itself."""
+    from repro.configs.base import MoEConfig as JMoE
     from repro_torch.configs.base import MoEConfig
 
-    extra = {}
+    extra, jextra = {}, {}
     if family == "moe":
         family = "vlm"
-        extra = dict(moe=MoEConfig(n_experts=4, top_k=2), cross_every=1)
+        extra, jextra = (dict(moe=m(n_experts=4, top_k=2), cross_every=1, vision_tokens=8)
+                         for m in (MoEConfig, JMoE))
     elif family == "ssm":
         family = "encdec"
-        extra = dict(enc_layers=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
-        TModel(TArch(**{**CFG, "family": family}, **extra, dtype=torch.float32))
+        extra = jextra = dict(enc_layers=2, enc_seq=16)
+    else:
+        extra = jextra = dict(cross_every=1, vision_tokens=8)
+    tm = TModel(TArch(**{**CFG, "family": family}, **extra, dtype=torch.float32))
+    jm = JModel(JArch(**{**CFG, "family": family}, **jextra, dtype=jnp.float32))
+    rng = np.random.default_rng(11)
+
+    def draw(path, d):
+        if "gate" in jax.tree_util.keystr(path):
+            return rng.uniform(0.5, 1.0, d.shape).astype(np.float32)
+        if d.init in ("ones", "zeros"):
+            return np.ones(d.shape, np.float32)
+        std = 0.3 if d.init == "small" else {
+            "fan_in": d.scale / np.sqrt(d.shape[-2]), "normal": d.scale * 0.02}[d.init]
+        return (rng.standard_normal(d.shape) * std).astype(np.float32)
+
+    params = jax.tree_util.tree_map_with_path(draw, jm.param_descs())
+    side = "vision_embeds" if family == "vlm" else "frames"
+    batch = {"tokens": rng.integers(0, CFG["vocab"], (2, 6)).astype(np.int32),
+             side: rng.standard_normal((2, 8 if family == "vlm" else 16, 64)).astype(np.float32)}
+    want = jm.forward(jax.tree_util.tree_map(jnp.asarray, params),
+                      {k: jnp.asarray(v) for k, v in batch.items()})
+    got = tm.forward(params_from_numpy(params, device="cpu"),
+                     {k: torch.from_numpy(v) for k, v in batch.items()})
+    assert got.shape == (2, 6, CFG["vocab"])
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)

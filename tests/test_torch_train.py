@@ -433,11 +433,19 @@ def test_train_state_convert_roundtrip_and_unported_families(jstate):
                          T["tree"].tree_leaves(back), strict=True):
         np.testing.assert_array_equal(b, a)
     assert ts.err["blocks"]["ln1"].shape == () and ts.err["embed"]["tok"].shape == (256, 64)
-    # the encoder-decoder and vision families are not ported yet
+    # the encoder-decoder and vision families' parameter trees (cross
+    # blocks, encoder blocks, the (1,) gates) cross and come back bit for bit
     for family, extra in (("encdec", {"enc_layers": 2}), ("vlm", {"cross_every": 1})):
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
-            T["api"].Model(T["configs"].ArchConfig(**{**CFG, "family": family}, **extra,
-                                                   dtype=torch.float32))
+        model = T["api"].Model(T["configs"].ArchConfig(**{**CFG, "family": family}, **extra,
+                                                       dtype=torch.float32))
+        tree = T["base"].init_params(model.param_descs(), torch.Generator().manual_seed(1),
+                                     device="cpu")
+        arrays = T["convert"].params_to_numpy(tree)
+        back = T["convert"].params_from_numpy(arrays, "cpu")
+        pairs = list(zip(T["tree"].tree_leaves(tree), T["tree"].tree_leaves(back), strict=True))
+        assert all(torch.equal(a, b) for a, b in pairs)
+        assert ("enc_blocks" if family == "encdec" else "cross_blocks") in back
+    assert back["cross_blocks"]["gate"].shape == (2, 1)
 
 
 def test_prefill_and_serve_steps(jstate, batches):
