@@ -156,7 +156,19 @@ Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``
    tokens on the card, on the zero-K/V path at every tier and on the
    filled path, last prefill logits within 1e-4.  Phase 2 also holds K1-K4
    at the two families' packed shapes (whisper's head N = 51865 is odd)
-   and K3 at the rows that fill cross K/V (M 8192 and 12000).
+   and K3 at the rows that fill cross K/V (M 8192 and 12000);
+16. the dry run (``repro_torch.launch.dryrun``) held against the card:
+   smollm-135m's decode_32k (128 slots, a 32768-entry cache) at 1 and 2
+   layers, dense and packed (K3 at M = 128), and an 8 x 1024 train step at
+   1 layer with gradient compression (K5), each dry-run on meta tensors on
+   the one-card mesh and then run on the card from the same descriptors
+   made real by ``init_params`` (seed 0): the card's FlopCounterMode total
+   plus the kernels' 2 M K N equals the meta count, the dispatch counters,
+   plane traffic and argument bytes are equal, the peak above the bytes
+   held before the arguments is within 10% of the traced ``peak_bytes``,
+   K3 / K5 launch and no plain version runs; then smollm-135m at its 30
+   layers dry-run at the four shapes on the host (peak GB a device against
+   80 GB, the dominant roofline term, ``useful_flops_ratio``).
 
 Any failed check raises, so the script exits non-zero and prints no
 result.  The second-to-last line is the per-kernel JSON summary and the
@@ -3599,6 +3611,139 @@ def cross_full_width(torch, workdir: Path) -> dict:
     return out
 
 
+# --------------------------------------------------------------------------
+# Phase 16: the dry run held against the card
+# --------------------------------------------------------------------------
+DRY_ARCH = "smollm_135m"
+# (shape, probe depth, packed, gradient compression) of the cells [16] runs for real
+DRY_CELLS = [("decode_32k", 1, False, False), ("decode_32k", 2, False, False),
+             ("decode_32k", 1, True, False), ("decode_32k", 2, True, False),
+             ("train_check", 1, False, True)]
+PEAK_TOL = 0.10  # measured peak against the traced peak_bytes
+
+
+def _real_leaves(torch, tree) -> list:
+    """Every tensor of a real argument tree, into its packed leaves' planes and scales."""
+    from repro_torch.quant.store import is_store
+    from repro_torch.tree import tree_leaves
+
+    out = []
+    for leaf in tree_leaves(tree, is_leaf=is_store):
+        out.extend((leaf.planes, leaf.scales) if is_store(leaf) else
+                   [leaf] if isinstance(leaf, torch.Tensor) else [])
+    return out
+
+
+def dryrun_vs_card(torch) -> dict:
+    """Phase 16 (a): each of :data:`DRY_CELLS` dry-run on the one-card mesh
+    (``launch/dryrun.py``, meta tensors), then the same step run on the
+    card from the same descriptors made real with ``init_params`` (seed 0):
+    its FlopCounterMode total plus the kernels' 2 M K N equals the meta
+    count, its dispatch counters and plane traffic equal the trace's, its
+    arguments' bytes equal ``argument_bytes``, and its peak above the bytes
+    held before the arguments were made is within :data:`PEAK_TOL` of
+    ``peak_bytes``.  The packed decode must launch K3 (M = 128), the
+    compressed train step K5, and no plain version may run.  Returns the
+    launches of the five runs."""
+    import gc
+
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.configs import ShapeConfig, get_arch
+    from repro_torch.kernels import dispatch, qsq, ref
+    from repro_torch.launch import dryrun
+    from repro_torch.models.base import init_params
+    from repro_torch.optim import GradCompressionConfig
+
+    full = get_arch(DRY_ARCH)
+    shapes = {"decode_32k": "decode_32k", "train_check": ShapeConfig("train_check", 1024, 8,
+                                                                      "train")}
+    total: dict = {}
+    for shape, depth, packed, compressed in DRY_CELLS:
+        cfg = dryrun.probe_config(full, depth)
+        cc = GradCompressionConfig(enabled=True) if compressed else None
+        label = (f"{shape}, {depth} layer{'s' if depth > 1 else ''}"
+                 f"{', packed' if packed else ''}{', compressed' if compressed else ''}")
+        t0 = time.perf_counter()
+        kw = dict(cfg_override=cfg, packed=packed, cc=cc)
+        meta = dryrun.run_cell(DRY_ARCH, shapes[shape], save=False, probes_enabled=False, **kw)
+        t_meta = time.perf_counter() - t0
+        cell = dryrun.build_cell(DRY_ARCH, shapes[shape], **kw)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        args = [init_params(d, gen, device="cuda") for d in cell.descs]
+        torch.cuda.synchronize()
+        arg_bytes = sum(t.nbytes for t in _real_leaves(torch, args))
+        held = torch.cuda.memory_allocated() - base
+        torch.cuda.reset_peak_memory_stats()
+        dispatch.reset_counters()
+        qsq.reset_launches()
+        qsq.work.clear()
+        ref.calls.clear()
+        t1 = time.perf_counter()
+        with FlopCounterMode(display=False) as fc:
+            out = cell.step(*args)
+        torch.cuda.synchronize()
+        t_step = time.perf_counter() - t1
+        peak = torch.cuda.max_memory_allocated() - base
+        flops = fc.get_total_flops() + qsq.work["flops"]
+        launches = dict(+qsq.launches)
+        counts = {"counters": dict(+dispatch.counters), "traffic": dict(+dispatch.traffic)}
+        del out, args
+        pd = meta["per_device"]
+        gap = (peak - pd["peak_bytes"]) / pd["peak_bytes"]
+        say(f"  {label}: flops card {flops:,} meta {pd['flops']:,.0f}; arguments "
+            f"{arg_bytes:,} B (allocated {held:,}), meta {pd['argument_bytes']:,}; peak card "
+            f"{peak:,} B, meta {pd['peak_bytes']:,} B (temp {pd['temp_bytes']:,}), gap "
+            f"{gap:+.4%}; bytes accessed {pd['bytes_accessed']:,.0f}, roofline "
+            f"{meta['roofline']['bound_s'] * 1e3:.3f} ms ({meta['roofline']['dominant']}); "
+            f"launches {launches}; dispatch {counts['counters']}; meta {t_meta:.1f} s, "
+            f"step {t_step * 1e3:.1f} ms")
+        bad = []
+        if float(flops) != pd["flops"]:
+            bad.append(f"flops {flops} != meta {pd['flops']}")
+        if counts != meta["dispatch"]:
+            bad.append(f"dispatch {counts} != meta {meta['dispatch']}")
+        if arg_bytes != pd["argument_bytes"]:
+            bad.append(f"argument bytes {arg_bytes} != meta {pd['argument_bytes']}")
+        if abs(gap) > PEAK_TOL:
+            bad.append(f"peak {peak} off the traced {pd['peak_bytes']} by {gap:+.2%}")
+        want = {"qsq_matmul"} if packed else {"qsq_quantize"} if compressed else set()
+        if set(launches) != want or +ref.calls:
+            bad.append(f"launches {launches} (want {sorted(want)}), plain versions "
+                       f"{dict(ref.calls)}")
+        if bad:
+            raise AssertionError(f"[16] {label}: " + "; ".join(bad))
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+    return total
+
+
+def dryrun_full_depth() -> None:
+    """Phase 16 (b): smollm-135m at its 30 layers dry-run at the four shapes
+    on the one-card mesh, on the host only: peak GB a device against the
+    card's 80 GB, the dominant roofline term, ``useful_flops_ratio``."""
+    from repro_torch.configs import SHAPES
+    from repro_torch.launch import dryrun
+
+    for shape in SHAPES:
+        t0 = time.perf_counter()
+        r = dryrun.run_cell(DRY_ARCH, shape, save=False, probes_enabled=False)
+        if not r["supported"]:
+            say(f"  {shape}: not supported ({r['skip_reason']})")
+            continue
+        pd, rt = r["per_device"], r["roofline"]
+        say(f"  {shape}: peak {pd['peak_bytes'] / 1e9:.3f} GB a device "
+            f"({'fits' if pd['peak_bytes'] <= 80e9 else 'does not fit'} 80 GB; arguments "
+            f"{pd['argument_bytes'] / 1e9:.3f} GB), flops {pd['flops']:.4e}, bytes "
+            f"{pd['bytes_accessed']:.4e}, dominant {rt['dominant']} "
+            f"({rt['bound_s'] * 1e3:.3f} ms), useful_flops_ratio "
+            f"{r['useful_flops_ratio']:.4f}; traced in {time.perf_counter() - t0:.1f} s")
+
+
 def main() -> int:
     import torch
 
@@ -3709,6 +3854,15 @@ def main() -> int:
         f"path at three tiers, the cross K/V filled through K3; the forward against the "
         f"decode in f32; the two smoke configs, card against CPU")
     cross = cross_full_width(torch, workdir)
+    t16 = time.perf_counter()
+    say(f"[16] the dry run (meta tensors, the one-card mesh) held against real steps on the "
+        f"card: {DRY_ARCH} decode_32k at 1 and 2 layers, dense and packed, and a compressed "
+        f"train step at 1 layer")
+    dry_launches = dryrun_vs_card(torch)
+    say(f"[16] {DRY_ARCH} at its {get_arch(DRY_ARCH).n_layers} layers dry-run at the four "
+        f"shapes (host only)")
+    dryrun_full_depth()
+    say(f"  [16] {time.perf_counter() - t16:.1f} s")
 
     for name, row in rows.items():
         row["launches"] = launches.get(name, 0)
@@ -3749,13 +3903,15 @@ def main() -> int:
                           moe_shapes_library_ms=moe_shapes[name]["library_ms"],
                           moe_shapes_bound_ms=moe_shapes[name]["bound_ms"])
         rows[name]["packed_params_max_abs_err"] = packed_errs.get(name)
+        rows[name]["launches_dryrun_check"] = dry_launches.get(name, 0)
         rows[name].update(table2_ms=table2[name]["ms"], table2_plain_ms=table2[name]["plain_ms"],
                           table2_library_ms=table2[name]["library_ms"],
                           table2_bound_ms=table2[name]["bound_ms"],
                           table2_max_abs_err=errs2[name])
         say(f"    {name}: max |kernel - plain| {e:.3e} (plane-major, sign-magnitude), "
             f"{errs2[name]:.3e} (Table II layout)")
-    k5_row.update(launches=train_launches.get(K5[0], 0), max_abs_err=k5_err)
+    k5_row.update(launches=train_launches.get(K5[0], 0), max_abs_err=k5_err,
+                  launches_dryrun_check=dry_launches.get(K5[0], 0))
     say(f"    total {time.perf_counter() - t_start:.1f} s")
     say(json.dumps({"kernels": [rows[k] for k in KERNELS] + [k5_row]}))
     say(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -17,8 +17,8 @@ Inside :func:`dispatch_phase` every call also adds its plane words under
 
 A step replayed from a CUDA graph runs no Python, so no call counts.
 The engine records, with :func:`record_counts`, what a step's calls add
-to :data:`counters`, :data:`traffic` and ``kernels.qsq.launches`` while
-it is captured (the capture launches nothing, so nothing stays counted),
+to :data:`counters`, :data:`traffic`, ``kernels.qsq.launches`` and
+``kernels.qsq.work`` while it is captured (the capture launches nothing, so nothing stays counted),
 and :func:`add_counts` adds that on every replay, phase words under the
 replay's own :func:`dispatch_phase` label: the counts stay per call.
 
@@ -73,15 +73,15 @@ def reset_counters() -> None:
 
 
 def _all_counters() -> tuple[collections.Counter, ...]:
-    return counters, traffic, qsq.launches
+    return counters, traffic, qsq.launches, qsq.work
 
 
 @contextlib.contextmanager
 def record_counts():
     """Count nothing inside the block: the yielded list receives, on exit,
     what the block's calls would have added to (:data:`counters`,
-    :data:`traffic`, ``qsq.launches``), phase words left out.  The engine
-    records a step's capture (or warm-up) with it."""
+    :data:`traffic`, ``qsq.launches``, ``qsq.work``), phase words left
+    out.  The engine records a step's capture (or warm-up) with it."""
     global _phase
     before = [collections.Counter(c) for c in _all_counters()]
     prev, _phase = _phase, ""

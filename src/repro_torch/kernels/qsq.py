@@ -5,7 +5,10 @@ outputs with ``torch.empty``, launches its CUDA kernel
 (``csrc/qsq_matvec.cu``, ``csrc/qsq_matmul.cu``, ``csrc/qsq_quantize.cu``)
 on the current stream and adds one to :data:`launches` under its name.  A
 CUDA tensor either runs the kernel or raises; the plain PyTorch version in
-``kernels/ref.py`` runs only when the tensors lie on the CPU.
+``kernels/ref.py`` runs only when the tensors lie on the CPU.  On
+``device="meta"`` tensors (the dry run, ``launch/dryrun.py``) a wrapper
+makes the same checks as on CUDA and returns ``torch.empty`` outputs of
+the kernel's shapes and dtypes on the meta device, launching nothing.
 
 Operands (all kernels): x (M, K) float32 or bfloat16; planes int32,
 interleaved (K//32, 3, N) or plane-major (3, K//32, N); scales (K//G, N)
@@ -38,6 +41,12 @@ SMEM_MAX = 200 * 1024  # dynamic shared memory the kernels allow themselves
 # is launched (chip_smoke.py resets and reads them around the main path).
 # "<name>:fma" also counts the bf16 calls that took the FMA route.
 launches: collections.Counter = collections.Counter()
+# what the kernels' calls on CUDA and meta tensors do, which no dispatch
+# mode sees: "flops" (2 M K N a packed matmul; none for the encoder) and
+# "bytes" (each operand read once, each output written once; a packed
+# matmul reads only the planes it streams).  On the CPU the plain
+# versions' own tensor ops show instead, so nothing is added there.
+work: collections.Counter = collections.Counter()
 
 _X_DTYPES = (torch.float32, torch.bfloat16)
 
@@ -194,8 +203,8 @@ def _on_cpu(*ts) -> bool:
     dev = devs.pop()
     if dev.type == "cpu":
         return True
-    if dev.type != "cuda":
-        raise ValueError(f"the QSQ kernels run on CUDA or CPU tensors, not {dev}")
+    if dev.type not in ("cuda", "meta"):
+        raise ValueError(f"the QSQ kernels run on CUDA, CPU or meta tensors, not {dev}")
     return False
 
 
@@ -216,10 +225,18 @@ def _check_cuda(x, planes, scales, plane_mask=None) -> None:
 
 def _launch(name: str, x, planes, scales, plane_mask, group_size: int,
             sign_mag: bool, plane_major: bool, tail: int) -> torch.Tensor:
-    from repro_torch.kernels import build  # deferred: builds on first launch
-
     m, k = x.shape
     n = planes.shape[-1]
+    # planes streamed: ``tail`` is the unmasked kernels' count and the masked
+    # ones' demand drop; the interleaved layout reads all three
+    n_read = (3 - tail if plane_mask is not None else tail) if plane_major else 3
+    work["flops"] += 2 * m * k * n
+    work["bytes"] += (x.numel() * x.element_size() + n_read * (k // 32) * n * 4
+                      + scales.numel() * 4 + m * n * 4 + (4 * m if plane_mask is not None else 0))
+    if x.device.type == "meta":  # the dry run: shapes only
+        return torch.empty((m, n), dtype=torch.float32, device="meta")
+    from repro_torch.kernels import build  # deferred: builds on first launch
+
     p = launch_plan("gemv" if name.startswith("qsq_matvec") else "gemm", m, k, n,
                     group_size, x.dtype)
     out = torch.empty((m, n), dtype=torch.float32, device=x.device)
@@ -323,10 +340,13 @@ def qsq_quantize(w: torch.Tensor, *, group_size: int, phi: int = 4
         raise TypeError(f"w must be float32 or bfloat16, got {w.dtype}")
     if not w.is_contiguous():
         raise ValueError("qsq_quantize takes a contiguous w")
-    from repro_torch.kernels import build  # deferred: builds on first launch
-
     codes = torch.empty((k, n), dtype=torch.uint8, device=w.device)
     scales = torch.empty((k // group_size, n), dtype=torch.float32, device=w.device)
+    work["bytes"] += w.numel() * w.element_size() + codes.numel() + scales.numel() * 4
+    if w.device.type == "meta":  # the dry run: shapes only
+        return codes, scales
+    from repro_torch.kernels import build  # deferred: builds on first launch
+
     rc = build.load().qsq_quantize(w.data_ptr(), codes.data_ptr(), scales.data_ptr(),
                                    k, n, group_size, phi, int(w.dtype == torch.bfloat16),
                                    torch.cuda.current_stream(w.device).cuda_stream)

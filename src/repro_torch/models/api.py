@@ -19,8 +19,9 @@ import dataclasses
 
 import torch
 
-from repro_torch.configs.base import ArchConfig
+from repro_torch.configs.base import ArchConfig, ShapeConfig
 from repro_torch.models import encdec, hybrid, mamba_lm, transformer
+from repro_torch.models.base import ParamDesc
 
 _ATTENTION = ("dense", "moe", "vlm")
 _FAMILIES = _ATTENTION + ("ssm", "hybrid", "encdec")
@@ -158,3 +159,31 @@ class Model:
         if drop_map:
             store = truncate_tree(store, drop_map)
         return dense_tree(store, like=descs), 0
+
+    def input_descs(self, shape: ShapeConfig) -> dict:
+        """The batch of a step at ``shape`` as descriptors: tokens (and labels
+        when training), one new token a slot when decoding (the context
+        lives in the cache); ``vision_embeds`` for the VLM and ``frames``
+        for the encoder-decoder on train and prefill shapes."""
+        cfg = self.cfg
+        b = shape.global_batch
+
+        def tok(s):
+            return ParamDesc((b, s), ("batch", None), dtype=torch.int32, init="zeros")
+
+        if shape.kind == "train":
+            batch = {"tokens": tok(shape.seq_len), "labels": tok(shape.seq_len)}
+        elif shape.kind == "prefill":
+            batch = {"tokens": tok(shape.seq_len)}
+        else:
+            batch = {"tokens": tok(1)}
+        if shape.kind in ("train", "prefill"):
+            if cfg.family == "vlm":
+                batch["vision_embeds"] = ParamDesc((b, cfg.vision_tokens, cfg.d_model),
+                                                   ("batch", None, None), dtype=cfg.dtype,
+                                                   init="normal")
+            if cfg.family == "encdec":
+                batch["frames"] = ParamDesc((b, cfg.enc_seq, cfg.d_model),
+                                            ("batch", None, None), dtype=cfg.dtype,
+                                            init="normal")
+        return batch

@@ -1,15 +1,26 @@
 """Parameter descriptors (the port of ``repro/models/base.py``).
 
 Models describe their parameters as a tree of :class:`ParamDesc` (shape +
-logical axis names + init); :func:`init_params` materializes real tensors
-from a ``torch.Generator``.  The generator draws other numbers than
-``jax.random`` from the same seed — tests that compare the packages make
-their weights with numpy and pass them to both.
+logical axis names + init).  From one description come:
+
+  * real tensors (:func:`init_params`), drawn from a ``torch.Generator``;
+  * ``device="meta"`` stand-ins (:func:`abstract_params`), which the dry
+    run (``launch/dryrun.py``) traces the steps on;
+  * partition specs (:func:`partition_specs`): logical axes mapped to mesh
+    axes by a rules dict, e.g. "mlp" -> ("model",), with any dim whose size
+    its mesh axes do not divide left replicated.
+
+The generator draws other numbers than ``jax.random`` from the same seed —
+tests that compare the packages make their weights with numpy and pass
+them to both.  A descriptor tree may hold WeightStore nodes whose fields
+are descriptors (``quant.packed.packed_param_descs``); every function here
+maps those fields and keeps the node.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any
+import math
+from typing import Any, Mapping, Sequence
 
 import numpy as np
 import torch
@@ -34,6 +45,31 @@ class ParamDesc:
 
 def is_desc(x) -> bool:
     return isinstance(x, ParamDesc)
+
+
+def _is_node(x) -> bool:
+    """A descriptor, or a WeightStore node (a dataclass) holding descriptors."""
+    return is_desc(x) or (dataclasses.is_dataclass(x) and not isinstance(x, type)
+                          and any(is_desc(getattr(x, f.name)) for f in dataclasses.fields(x)))
+
+
+def map_descs(fn, descs) -> Any:
+    """``fn`` over every descriptor of a tree, into WeightStore nodes too."""
+    def node(x):
+        if is_desc(x):
+            return fn(x)
+        return dataclasses.replace(x, **{f.name: fn(getattr(x, f.name))
+                                         for f in dataclasses.fields(x)
+                                         if is_desc(getattr(x, f.name))})
+
+    return tree_map(node, descs, is_leaf=_is_node)
+
+
+def desc_leaves(descs) -> list[ParamDesc]:
+    """Every descriptor of a tree, in :func:`map_descs`' order."""
+    out: list[ParamDesc] = []
+    map_descs(out.append, descs)
+    return out
 
 
 def resolve_device(device) -> torch.device:
@@ -71,7 +107,83 @@ def init_params(descs, generator: torch.Generator | None = None, device="cuda") 
     device = resolve_device(device)
     if generator is None:
         generator = torch.Generator(device=device).manual_seed(0)
-    return tree_map(lambda d: _init_one(d, generator, device), descs, is_leaf=is_desc)
+    return map_descs(lambda d: _init_one(d, generator, device), descs)
+
+
+def abstract_params(descs) -> Any:
+    """``device="meta"`` stand-ins of a descriptor tree: shapes, dtypes and
+    strides, no storage and no generator (the dry run traces on them)."""
+    return map_descs(lambda d: torch.empty(d.shape, dtype=d.dtype, device="meta"), descs)
+
+
+def spec_for_shape(shape, axes, rules: Mapping[str, Sequence[str]],
+                   mesh_axis_sizes: Mapping[str, int]) -> tuple:
+    """One tensor's partition spec from its logical axes, as a tuple with one
+    entry a dim: None (replicated), a mesh axis name, or a tuple of names.
+    A dim is sharded over its mapped mesh axes only if their product divides
+    its size; a mesh axis shards at most one dim (the first dim wins)."""
+    used: set = set()
+    entries = []
+    for size, name in zip(shape, axes, strict=True):
+        mesh_axes = tuple(a for a in (rules.get(name, ()) if name else ()) if a not in used)
+        prod = math.prod(mesh_axis_sizes[a] for a in mesh_axes)
+        if mesh_axes and size % prod == 0:
+            used.update(mesh_axes)
+            entries.append(mesh_axes if len(mesh_axes) > 1 else mesh_axes[0])
+        else:
+            entries.append(None)
+    return tuple(entries)
+
+
+def partition_specs(descs, rules: Mapping[str, Sequence[str]],
+                    mesh_axis_sizes: Mapping[str, int]) -> Any:
+    """Logical axes -> a tree of partition specs (see :func:`spec_for_shape`)."""
+    return map_descs(lambda d: spec_for_shape(d.shape, d.axes, rules, mesh_axis_sizes), descs)
+
+
+# Activation rules.  The JAX package pins key activations to mesh axes with
+# ``constrain`` under rules installed per launch; the port's tensors are
+# unsharded, so ``constrain`` only checks its axes against the tensor, and
+# the rules tell the MoE layer how many data shards route apart
+# (:func:`data_shard_count`).
+_ACT_RULES: dict = {}
+_ACT_MESH = None
+
+
+def set_activation_rules(rules: Mapping[str, Sequence[str]] | None, mesh=None) -> None:
+    """Install ``rules`` on ``mesh`` (``launch.mesh.Mesh``), or clear them."""
+    global _ACT_RULES, _ACT_MESH
+    _ACT_RULES = dict(rules) if rules else {}
+    _ACT_MESH = mesh
+
+
+def _act_sizes() -> dict:
+    return dict(zip(_ACT_MESH.axis_names, _ACT_MESH.shape, strict=True))
+
+
+def constrain(x: torch.Tensor, axes: tuple) -> torch.Tensor:
+    """x itself; with rules installed its spec is resolved first, so axes
+    whose length differs from x's rank raise."""
+    if _ACT_RULES and _ACT_MESH is not None:
+        spec_for_shape(x.shape, axes, _ACT_RULES, _act_sizes())
+    return x
+
+
+def data_shard_count() -> int:
+    """Product of the mesh axes that carry the batch under the installed
+    rules (1 with none installed): the MoE layer's routing shards."""
+    if not _ACT_RULES or _ACT_MESH is None:
+        return 1
+    sizes = _act_sizes()
+    return math.prod(sizes[a] for a in _ACT_RULES.get("batch", ()) if a in sizes)
+
+
+def count_params(descs) -> int:
+    return sum(math.prod(d.shape) for d in desc_leaves(descs))
+
+
+def param_bytes(descs) -> int:
+    return sum(math.prod(d.shape) * d.dtype.itemsize for d in desc_leaves(descs))
 
 
 def dense(d_in: int, d_out: int, in_ax: str | None, out_ax: str | None,

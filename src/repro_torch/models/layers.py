@@ -33,7 +33,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.base import ParamDesc, dense
+from repro_torch.models.base import ParamDesc, constrain, data_shard_count, dense
 from repro_torch.quant.store import is_store
 
 
@@ -430,27 +430,21 @@ class Routing(NamedTuple):
     weight: torch.Tensor  # (T*k,) f32 renormalised top-k weight (0 on dead lanes)
 
 
-def moe_route(router: torch.Tensor, xt: torch.Tensor, *, top_k: int, cap: int,
-              active: torch.Tensor | None = None) -> tuple[Routing, torch.Tensor]:
-    """Top-k token choice over xt (T, d) -> (routing, aux loss).
-
-    The router runs in f32.  Each expert takes its first ``cap``
-    assignments in token-major order (a stable sort by expert id); the rest
-    drop.  An inactive lane's assignments go to the sentinel expert E,
-    which sorts after every real one, so a dead lane claims no capacity.
-    Shapes only decide ``cap``; nothing here syncs with the host."""
+def _route(router: torch.Tensor, xt: torch.Tensor, top_k: int, cap: int,
+           active: torch.Tensor | None) -> tuple[Routing, torch.Tensor, torch.Tensor]:
+    """:func:`moe_route` with the load-balancing terms apart: (routing, the
+    mean router probability of each expert (E,), the top-1 counts (E,))."""
     t = xt.shape[0]
     e = router.shape[-1]
     probs = torch.softmax(xt.to(torch.float32) @ router.to(torch.float32), dim=-1)  # (T, E)
     topw, topi = torch.topk(probs, top_k, dim=-1)
     topw = topw / torch.sum(topw, dim=-1, keepdim=True)
 
-    # Switch-style load-balancing loss over every token; the top-1 counts go
+    # Switch-style load-balancing terms over every token; the top-1 counts go
     # through scatter_add_ (bincount's output length would sync the host)
     me = torch.mean(probs, dim=0)
     counts = torch.zeros(e, dtype=torch.float32, device=xt.device).scatter_add_(
         0, topi[:, 0], torch.ones(t, dtype=torch.float32, device=xt.device))
-    aux = e * torch.sum(me * (counts / t))
 
     flat_e = topi.reshape(-1)
     flat_w = topw.reshape(-1)
@@ -466,7 +460,21 @@ def moe_route(router: torch.Tensor, xt: torch.Tensor, *, top_k: int, cap: int,
                                 side="left")
     pos = rank - starts[torch.clamp(flat_e, max=e - 1)]
     keep = (pos < cap) & (flat_e < e)
-    return Routing(expert=flat_e, pos=pos, keep=keep, weight=flat_w), aux
+    return Routing(expert=flat_e, pos=pos, keep=keep, weight=flat_w), me, counts
+
+
+def moe_route(router: torch.Tensor, xt: torch.Tensor, *, top_k: int, cap: int,
+              active: torch.Tensor | None = None) -> tuple[Routing, torch.Tensor]:
+    """Top-k token choice over xt (T, d) -> (routing, aux loss).
+
+    The router runs in f32.  Each expert takes its first ``cap``
+    assignments in token-major order (a stable sort by expert id); the rest
+    drop.  An inactive lane's assignments go to the sentinel expert E,
+    which sorts after every real one, so a dead lane claims no capacity;
+    ``active`` holds one flag a lane or one a token.  Shapes only decide
+    ``cap``; nothing here syncs with the host."""
+    r, me, counts = _route(router, xt, top_k, cap, active)
+    return r, router.shape[-1] * torch.sum(me * (counts / xt.shape[0]))
 
 
 def expert_ffn(p: dict, buf: torch.Tensor) -> torch.Tensor:
@@ -477,38 +485,67 @@ def expert_ffn(p: dict, buf: torch.Tensor) -> torch.Tensor:
     return torch.bmm(g * u, W(p["wd"]).to(buf.dtype))
 
 
-def moe(p: dict, x: torch.Tensor, *, top_k: int, capacity_factor: float = 1.25,
-        active: torch.Tensor | None = None) -> tuple[torch.Tensor, torch.Tensor]:
-    """Top-k token-choice MoE over x (B, S, d) -> (y, aux loss), the JAX
-    package's ``moe`` with no mesh (one routing shard).
-
-    Every expert gets a buffer of ``cap = ceil(T * k * cf / E)`` tokens;
-    overflowing assignments drop, and dropped and dead ones land in a trash
-    slot ``cap`` that is cut off before the expert FFN.  ``active`` (B,)
-    takes dead lanes out of the competition (:func:`moe_route`).  Each kept
-    slot receives one token, so the dispatch is a plain indexed write; the
-    k weighted expert outputs of a token are summed in index order, so the
-    result does not depend on the order of a scatter's atomics."""
-    b, s, d = x.shape
+def _dispatch(p: dict, xt: torch.Tensor, r: Routing, cap: int, top_k: int) -> torch.Tensor:
+    """xt (T, d) through the experts :func:`moe_route` chose -> (T, d)."""
+    t, d = xt.shape
     e = p["router"].shape[-1]
-    t = b * s
-    xt = x.reshape(t, d)
-    cap = int(np.ceil(t * top_k * capacity_factor / e))
-    r, aux = moe_route(p["router"], xt, top_k=top_k, cap=cap, active=active)
     ec = torch.clamp(r.expert, max=e - 1)
     slot = torch.where(r.keep, r.pos, cap)
-    tok = torch.arange(t, device=x.device)[:, None].expand(t, top_k).reshape(-1)
+    tok = torch.arange(t, device=xt.device)[:, None].expand(t, top_k).reshape(-1)
 
-    buf = torch.zeros((e, cap + 1, d), dtype=x.dtype, device=x.device)
+    buf = torch.zeros((e, cap + 1, d), dtype=xt.dtype, device=xt.device)
     buf.index_put_((ec, slot), xt[tok])
     yb = expert_ffn(p, buf[:, :cap])
 
-    w = (r.weight * r.keep.to(r.weight.dtype)).to(x.dtype)
+    w = (r.weight * r.keep.to(r.weight.dtype)).to(xt.dtype)
     ya = (yb[ec, torch.clamp(slot, max=cap - 1)] * w[:, None]).view(t, top_k, d)
     y = ya[:, 0]
     for j in range(1, top_k):
         y = y + ya[:, j]
-    return y.reshape(b, s, d), aux
+    return y
+
+
+def moe(p: dict, x: torch.Tensor, *, top_k: int, capacity_factor: float = 1.25,
+        active: torch.Tensor | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+    """Top-k token-choice MoE over x (B, S, d) -> (y, aux loss), the JAX
+    package's ``moe``: capacity routing local to each data shard.
+
+    The T = B * S tokens split into ``data_shard_count()`` equal shards in
+    order (one shard with no activation rules installed, or where T does
+    not split into shards of at least ``max(top_k, 4)`` tokens).  In each
+    shard every expert gets a buffer of ``cap = ceil(T_shard * k * cf / E)``
+    tokens; overflowing assignments drop, and dropped and dead ones land in
+    a trash slot ``cap`` that is cut off before the expert FFN.  ``active``
+    (B,) takes dead lanes out of the competition (:func:`moe_route`).  Each
+    kept slot receives one token, so the dispatch is a plain indexed write;
+    the k weighted expert outputs of a token are summed in index order, so
+    the result does not depend on the order of a scatter's atomics.  The
+    aux loss takes the mean router probability over every token and the
+    top-1 counts shard by shard, as the JAX package does."""
+    b, s, d = x.shape
+    e = p["router"].shape[-1]
+    t = b * s
+    shards = data_shard_count()
+    if shards <= 1 or t % shards or t // shards < max(top_k, 4):
+        shards = 1
+    tl = t // shards
+    cap = int(np.ceil(tl * top_k * capacity_factor / e))
+    if shards == 1:
+        xt = x.reshape(t, d)
+        r, aux = moe_route(p["router"], xt, top_k=top_k, cap=cap, active=active)
+        return _dispatch(p, xt, r, cap, top_k).reshape(b, s, d), aux
+    xs = constrain(x.reshape(shards, tl, d), ("batch", None, None))
+    act = None
+    if active is not None:  # one flag a token, split like the tokens
+        act = (active.reshape(b, 1) != 0).expand(b, s).reshape(shards, tl)
+    ys, mes, ces = [], [], []
+    for i in range(shards):
+        r, me, counts = _route(p["router"], xs[i], top_k, cap, None if act is None else act[i])
+        ys.append(_dispatch(p, xs[i], r, cap, top_k))
+        mes.append(me)
+        ces.append(counts / tl)
+    aux = e * torch.sum(torch.stack(mes).mean(0) * torch.stack(ces).mean(0))
+    return torch.cat(ys).reshape(b, s, d), aux
 
 
 def embed_descs(vocab: int, d: int, dtype=torch.float32) -> dict:

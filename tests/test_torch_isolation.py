@@ -130,12 +130,24 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
 
 
 def test_kernel_wrapper_refuses_other_devices():
+    """The wrappers take CUDA, CPU and meta tensors (meta: the dry run's
+    shapes-only route), on one device: a tensor on any other device, or
+    operands on two devices, raise."""
     from repro_torch.kernels import qsq
 
-    x = torch.zeros((2, 32), device="meta")
-    planes = torch.zeros((3, 1, 8), dtype=torch.int32, device="meta")
-    scales = torch.zeros((2, 8), device="meta")
-    with pytest.raises(ValueError, match="CUDA or CPU"):
+    class Elsewhere(torch.Tensor):  # a tensor that reports another device
+        @property
+        def device(self):
+            return torch.device("xpu")
+
+    x = torch.zeros((2, 32)).as_subclass(Elsewhere)
+    planes = torch.zeros((3, 1, 8), dtype=torch.int32).as_subclass(Elsewhere)
+    scales = torch.zeros((2, 8)).as_subclass(Elsewhere)
+    with pytest.raises(ValueError, match="CUDA, CPU or meta"):
         qsq.qsq_matvec(x, planes, scales, group_size=16, plane_major=True)
-    with pytest.raises(ValueError, match="CUDA or CPU"):
-        qsq.qsq_quantize(torch.zeros((4, 8), device="meta"), group_size=2)
+    with pytest.raises(ValueError, match="CUDA, CPU or meta"):
+        qsq.qsq_quantize(torch.zeros((4, 8)).as_subclass(Elsewhere), group_size=2)
+    with pytest.raises(ValueError, match="different devices"):
+        qsq.qsq_matvec(torch.zeros((2, 32), device="meta"),
+                       torch.zeros((3, 1, 8), dtype=torch.int32), torch.zeros((2, 8)),
+                       group_size=16, plane_major=True)
