@@ -168,7 +168,16 @@ Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``
    held before the arguments is within 10% of the traced ``peak_bytes``,
    K3 / K5 launch and no plain version runs; then smollm-135m at its 30
    layers dry-run at the four shapes on the host (peak GB a device against
-   80 GB, the dominant roofline term, ``useful_flops_ratio``).
+   80 GB, the dominant roofline term, ``useful_flops_ratio``);
+17. the port's qsqlint (``repro_torch.analysis``): the port's files lint
+   clean (files linted, pragmas honoured by rule, seconds); a captured d64
+   engine serves four mixed-tier requests, one speculating, so decode,
+   admission and verify are captured, and the functions of
+   ``serve/engine.py`` and ``train/step.py`` entered inside the
+   ``torch.cuda.graph`` block (``sys.setprofile``) include the three run
+   closures and are all among the linter's capture contexts; a planted
+   ``.item()`` in a ``StepGraphs.run`` step is flagged by QSQ002 at its
+   line and, run in a child process on the card, fails its capture.
 
 Any failed check raises, so the script exits non-zero and prints no
 result.  The second-to-last line is the per-kernel JSON summary and the
@@ -182,6 +191,7 @@ import dataclasses
 import json
 import math
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -3681,7 +3691,6 @@ def dryrun_vs_card(torch) -> dict:
         torch.cuda.reset_peak_memory_stats()
         dispatch.reset_counters()
         qsq.reset_launches()
-        qsq.work.clear()
         ref.calls.clear()
         t1 = time.perf_counter()
         with FlopCounterMode(display=False) as fc:
@@ -3742,6 +3751,141 @@ def dryrun_full_depth() -> None:
             f"{pd['bytes_accessed']:.4e}, dominant {rt['dominant']} "
             f"({rt['bound_s'] * 1e3:.3f} ms), useful_flops_ratio "
             f"{r['useful_flops_ratio']:.4f}; traced in {time.perf_counter() - t0:.1f} s")
+
+
+# --------------------------------------------------------------------------
+# Phase 17: the port's qsqlint, its capture contexts against the card
+# --------------------------------------------------------------------------
+LINT_ENGINE = "src/repro_torch/serve/engine.py"
+LINT_STEP = "src/repro_torch/train/step.py"
+RUN_CLOSURES = {(LINT_ENGINE, "ServeEngine._decode_call.<lambda>"),
+                (LINT_ENGINE, "ServeEngine._admit_call.<lambda>"),
+                (LINT_ENGINE, "ServeEngine._verify_call.verify")}
+# a captured step that reads a device value on the host; {src} is the port's path
+PLANTED_CHILD = """\
+import sys
+
+import torch
+
+sys.path.insert(0, {src!r})
+from repro_torch.serve.graphs import StepGraphs  # noqa: E402
+
+buf = torch.arange(4, dtype=torch.float32, device="cuda")
+
+
+def step():
+    scale = buf.sum().item()  # planted host sync
+    return buf * scale
+
+
+StepGraphs(torch.device("cuda")).run(("planted",), step)
+print("captured")
+"""
+
+
+def _recorded_graph(torch, entered: set):
+    """``torch.cuda.graph`` recording, with ``sys.setprofile``, the port's
+    functions entered inside its block into ``entered``."""
+    from repro_torch.analysis import entered_functions
+
+    class Recorded(torch.cuda.graph):
+        def __enter__(self):
+            out = super().__enter__()
+            self._rec = entered_functions(ROOT)
+            self._calls = self._rec.__enter__()
+            return out
+
+        def __exit__(self, *exc):
+            self._rec.__exit__(*exc)
+            entered.update(self._calls)
+            return super().__exit__(*exc)
+
+    return Recorded
+
+
+def lint_and_captures(torch, workdir: Path) -> None:
+    """Phase 17: (1) the port's files lint clean; (2) on a captured d64
+    engine serving decode, admission and a speculative verify, the functions
+    of ``serve/engine.py`` and ``train/step.py`` entered inside
+    ``StepGraphs._capture``'s ``torch.cuda.graph`` block include the three
+    run closures and are all among the linter's capture contexts; (3) a
+    planted ``.item()`` in a captured step is flagged at its line and its
+    capture fails on the card, in a child process."""
+    import tempfile
+
+    from repro_torch import api
+    from repro_torch.analysis import capture_contexts, lint_paths
+    from repro_torch.analysis.config import default_paths
+    from repro_torch.analysis.linter import lint_report
+
+    t0 = time.perf_counter()
+    vs, report = lint_report(default_paths(ROOT), root=ROOT)
+    t_lint = time.perf_counter() - t0
+    if vs:
+        raise AssertionError("[17] the port does not lint clean:\n"
+                             + "\n".join(v.format() for v in vs))
+    say(f"  lint: {report['files']} files, 0 violations, pragmas honoured by rule "
+        f"{dict(sorted(report['pragmas'].items()))}, {t_lint:.2f} s")
+    contexts = {(c["path"], c["qualname"])
+                for c in capture_contexts(["src/repro_torch"], root=ROOT)}
+
+    t1 = time.perf_counter()
+    model, params = d64_model_params(torch)
+    path = api.compress(model, params, device="cpu").save(workdir / "d64_lint.edge.npz")
+    eng = api.load(path).engine(quality="hi", batch_slots=4, max_prompt=8, max_len=32,
+                                device="cuda")
+    entered: set = set()
+    plain = torch.cuda.graph
+    torch.cuda.graph = _recorded_graph(torch, entered)
+    try:
+        prompts = [[5, 9, 2], [17], [3, 3, 3, 3, 8, 1], [250, 1]]
+        rids = [eng.submit(p, max_new=6, quality=q,
+                           speculate=api.SpecConfig("lo", k=3) if i == 0 else None)
+                for i, (p, q) in enumerate(zip(prompts, ["hi", "mid", "lo", "hi"], strict=True))]
+        eng.run_until_drained()
+    finally:
+        torch.cuda.graph = plain
+    path.unlink()
+    if not all(eng.poll(r).tokens for r in rids):
+        raise AssertionError("[17] a request emitted no token")
+    keys = sorted(map(repr, eng._session.graphs.keys()))
+    if {k[0] for k in eng._session.graphs.keys()} != {"decode", "admit", "verify"}:
+        raise AssertionError(f"[17] captured keys {keys}: decode, admit and verify expected")
+    ours = {e for e in entered if e[0] in (LINT_ENGINE, LINT_STEP)}
+    say(f"  captured {keys}; entered under capture in engine.py/step.py: "
+        f"{sorted(q for _, q in ours)}")
+    say(f"  the linter's capture contexts ({len(contexts)}): {sorted(q for _, q in contexts)}")
+    if not RUN_CLOSURES <= ours:
+        raise AssertionError(f"[17] run closures not entered under capture: "
+                             f"{sorted(RUN_CLOSURES - ours)}")
+    if not ours <= contexts:
+        raise AssertionError(f"[17] entered under capture but no capture context: "
+                             f"{sorted(ours - contexts)}")
+    t_cap = time.perf_counter() - t1
+
+    t2 = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=workdir) as tmp:
+        child = Path(tmp) / "planted_step.py"
+        child.write_text(PLANTED_CHILD.format(src=str(ROOT / "src")))
+        line = next(i for i, t in enumerate(child.read_text().splitlines(), 1)
+                    if "planted host sync" in t)
+        flagged = [v for v in lint_paths([child], root=tmp) if v.rule == "QSQ002"]
+        if [v.line for v in flagged] != [line]:
+            raise AssertionError(f"[17] QSQ002 flagged {[v.format() for v in flagged]}, "
+                                 f"want line {line}")
+        run = subprocess.run([sys.executable, str(child)], capture_output=True, text=True,
+                             timeout=300)
+    # the exceptions the child raised: the capture's, and only the capture's
+    errors = [ln for ln in run.stderr.splitlines()
+              if re.match(r"[A-Za-z_][\w.]*(Error|Exception): ", ln)]
+    if (run.returncode == 0 or "captured" in run.stdout or not errors
+            or not all("captur" in e for e in errors) or "buf.sum().item()" not in run.stderr):
+        raise AssertionError(f"[17] the planted child should fail its capture at the "
+                             f"planted line: exit {run.returncode}\n{run.stdout}\n{run.stderr}")
+    say(f"  planted child: QSQ002 at line {line}; its capture failed on the card, exit "
+        f"{run.returncode}: {' / '.join(errors)}")
+    say(f"  [17] lint {t_lint:.2f} s, captures {t_cap:.1f} s, planted child "
+        f"{time.perf_counter() - t2:.1f} s")
 
 
 def main() -> int:
@@ -3863,6 +4007,9 @@ def main() -> int:
         f"shapes (host only)")
     dryrun_full_depth()
     say(f"  [16] {time.perf_counter() - t16:.1f} s")
+    say("[17] qsqlint for the port: the tree lints clean, the capture contexts against "
+        "what the card captures, a planted host sync flagged and refused by the capture")
+    lint_and_captures(torch, workdir)
 
     for name, row in rows.items():
         row["launches"] = launches.get(name, 0)

@@ -13,10 +13,16 @@ flips are copies into static buffers and never a new capture.
 It watches the key set of the engine's stream session, which grows on
 the CPU and in eager mode exactly as it would on the card, so the check
 runs there too.
+
+:func:`entered_functions` records the Python functions a block enters,
+so a test can hold what runs under capture against the linter's capture
+contexts (``linter.capture_contexts``).
 """
 from __future__ import annotations
 
 import contextlib
+import sys
+from pathlib import Path
 
 
 def _keys(engine) -> set:
@@ -34,3 +40,31 @@ def no_recapture(engine):
     if grown:
         raise AssertionError(f"new captures inside a no_recapture() block: "
                              f"{sorted(map(repr, grown))}")
+
+
+@contextlib.contextmanager
+def entered_functions(root):
+    """Record, with ``sys.setprofile``, the Python functions entered inside
+    the block in files under ``root``.  The yielded set receives, on exit,
+    ``(path relative to root, qualname)`` pairs, the qualname as the linter
+    spells it (``ServeEngine._decode_call.<lambda>``, no ``<locals>``)."""
+    root = Path(root).resolve()
+    codes: set = set()
+
+    def profile(frame, event, arg):
+        if event == "call":
+            codes.add(frame.f_code)
+
+    out: set[tuple[str, str]] = set()
+    prev = sys.getprofile()
+    sys.setprofile(profile)
+    try:
+        yield out
+    finally:
+        sys.setprofile(prev)
+        for code in codes:
+            try:
+                rel = Path(code.co_filename).resolve().relative_to(root)
+            except ValueError:
+                continue
+            out.add((rel.as_posix(), code.co_qualname.replace(".<locals>", "")))

@@ -38,7 +38,8 @@ MAX_WARPS = 8  # 256 threads a block
 SMEM_MAX = 200 * 1024  # dynamic shared memory the kernels allow themselves
 
 # launches of each kernel, by wrapper name; counted only where a kernel
-# is launched (chip_smoke.py resets and reads them around the main path).
+# is launched (chip_smoke.py resets them and :data:`work` with
+# :func:`reset_launches` and reads them around the main path).
 # "<name>:fma" also counts the bf16 calls that took the FMA route.
 launches: collections.Counter = collections.Counter()
 # what the kernels' calls on CUDA and meta tensors do, which no dispatch
@@ -52,7 +53,9 @@ _X_DTYPES = (torch.float32, torch.bfloat16)
 
 
 def reset_launches() -> None:
+    """Zero :data:`launches` and :data:`work`."""
     launches.clear()
+    work.clear()
 
 
 class LaunchPlan(NamedTuple):

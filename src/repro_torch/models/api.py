@@ -36,6 +36,14 @@ class Model:
             raise ValueError(f"unknown family {self.cfg.family} (the paper's CNNs are "
                              f"repro_torch.models.cnn, not a Model)")
 
+    @property
+    def fused_prefill(self) -> bool:
+        """True if the family primes its cache with ONE full-sequence forward
+        (attention-only stacks); ``train.step.supports_fused_prefill`` asks
+        this.  Read here, not through the train package, so a captured
+        admission (``cache_insert_slot``) runs no step-module code."""
+        return self.cfg.family in ("dense", "moe") and not self.cfg.cross_every
+
     def param_descs(self):
         f = self.cfg.family
         if f == "ssm":
@@ -130,9 +138,7 @@ class Model:
     def cache_insert_slot(self, live, one, slot: int):
         """Write a single-slot prefilled cache into lane ``slot`` of a live
         cache (continuous-batching admission); attention families only."""
-        from repro_torch.train.step import supports_fused_prefill
-
-        if not supports_fused_prefill(self):
+        if not self.fused_prefill:
             raise ValueError(
                 f"single-slot cache admission needs an attention family with per-lane KV "
                 f"isolation; family {self.cfg.family!r} (cross_every={self.cfg.cross_every}) "
@@ -158,6 +164,8 @@ class Model:
                              "apply inside the kernels)")
         if drop_map:
             store = truncate_tree(store, drop_map)
+        # qsqlint: disable=QSQ001 -- the explicit packed=False opt-out:
+        # caller asked for full dense decode at load time, once
         return dense_tree(store, like=descs), 0
 
     def input_descs(self, shape: ShapeConfig) -> dict:

@@ -40,6 +40,9 @@ from repro_torch.quant.store import is_store
 def W(p):
     """Weight view: decode a WeightStore leaf to dense, pass tensors through."""
     if is_store(p):
+        # qsqlint: disable=QSQ001 -- decode-at-consumption for leaves no kernel
+        # takes (norms, embeddings, MoE experts, SSM mixers); matmul weights go
+        # through matvec()
         return p.as_dense()
     return p
 

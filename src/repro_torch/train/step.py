@@ -74,7 +74,7 @@ def supports_fused_prefill(model) -> bool:
     """True if the family primes its cache with ONE full-sequence forward
     (attention-only stacks).  Recurrent families (ssm/hybrid) and
     cross-attending ones (vlm/encdec) keep the scanned per-token path."""
-    return model.cfg.family in ("dense", "moe") and not model.cfg.cross_every
+    return model.fused_prefill
 
 
 def make_cache_prefill_step(model) -> Callable:

@@ -241,26 +241,25 @@ def test_meta_route_of_the_wrappers():
     il = torch.empty((k // 32, 3, n), dtype=torch.int32, **meta)
     sc = torch.empty((k // g, n), dtype=torch.float32, **meta)
     mask = torch.empty((m,), dtype=torch.int32, **meta)
-    launches, work = dict(tqsq.launches), dict(tqsq.work)
-    tqsq.work.clear()
     kw = dict(group_size=g, sign_mag=True, plane_major=True)
-    outs = [tqsq.qsq_matvec(x, pm, sc, demand_drop=1, **kw),
-            tqsq.qsq_matvec_masked(x, mask, pm, sc, demand_drop=2, **kw),
-            tqsq.qsq_matmul(x, il, sc, group_size=g),
-            tqsq.qsq_matmul_masked(x, mask, il, sc, group_size=g)]
+    # record_counts leaves the counters as they were and yields what the calls added
+    with tdispatch.record_counts() as delta:
+        outs = [tqsq.qsq_matvec(x, pm, sc, demand_drop=1, **kw),
+                tqsq.qsq_matvec_masked(x, mask, pm, sc, demand_drop=2, **kw),
+                tqsq.qsq_matmul(x, il, sc, group_size=g),
+                tqsq.qsq_matmul_masked(x, mask, il, sc, group_size=g)]
+        codes, scales = tqsq.qsq_quantize(torch.empty((k, n), **meta), group_size=g)
     for o in outs:
         assert o.device.type == "meta" and o.shape == (m, n) and o.dtype == torch.float32
-    codes, scales = tqsq.qsq_quantize(torch.empty((k, n), **meta), group_size=g)
     assert codes.shape == (k, n) and codes.dtype == torch.uint8 and codes.is_meta
     assert scales.shape == (k // g, n) and scales.dtype == torch.float32 and scales.is_meta
+    _, _, launched, work = delta
     # the planes each call streams: 2, 1, 3, 3; x, scales, output (and masks) once
     operands = m * k * 2 + (k // g) * n * 4 + m * n * 4
-    assert tqsq.work["flops"] == 4 * 2 * m * k * n
-    assert tqsq.work["bytes"] == (4 * operands + 2 * 4 * m + (2 + 1 + 3 + 3) * (k // 32) * n * 4
-                                  + k * n * 4 + k * n + (k // g) * n * 4)
-    assert dict(tqsq.launches) == launches
-    tqsq.work.clear()
-    tqsq.work.update(work)
+    assert work["flops"] == 4 * 2 * m * k * n
+    assert work["bytes"] == (4 * operands + 2 * 4 * m + (2 + 1 + 3 + 3) * (k // 32) * n * 4
+                             + k * n * 4 + k * n + (k // g) * n * 4)
+    assert not launched
     # the card's checks hold on meta, and mixed devices still refuse
     with pytest.raises(ValueError, match="M <= 16"):
         tqsq.qsq_matvec(torch.empty((17, k), dtype=torch.bfloat16, **meta), pm, sc,
